@@ -13,14 +13,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import BucketedConfig, PipelineConfig
-from fandom_search_tpu.data.shingler import embed_shingles_np, shingle_hashes
-from fandom_search_tpu.ops.bucketed import (
+from fandom_search.config import BucketedConfig, PipelineConfig
+from fandom_search.data.shingler import embed_shingles_np, shingle_hashes
+from fandom_search.ops.bucketed import (
     BucketedIndex,
     attach_bucketed_prefilter,
     bucketed_topk,
 )
-from fandom_search_tpu.ops.distance_topk import pad_rows, topk_dot_jnp
+from fandom_search.ops.distance_topk import pad_rows, topk_dot_jnp
 
 CFG = PipelineConfig()
 SCFG = CFG.shingle
@@ -56,7 +56,7 @@ def test_guaranteed_candidates_match_exact_kernel(rng):
     bvals, bidx_out = bucketed_topk(
         q_emb, q_stream, bidx, s_pad, K, DIM, BCFG, SCFG
     )
-    evals, eidx = topk_dot_jnp(q_emb, s_emb, K, DIM)
+    evals, eidx = topk_dot_jnp(q_emb, s_emb, k=K, dim=DIM)
     bvals, bidx_out = np.asarray(bvals), np.asarray(bidx_out)
     evals, eidx = np.asarray(evals), np.asarray(eidx)
 
@@ -91,7 +91,7 @@ def test_no_duplicate_candidates(rng):
     q_stream, s_stream = _world(rng, nq=256, ns=800)
     windows = shingle_hashes(s_stream, SCFG)
     bidx = BucketedIndex.build(windows, BCFG, SCFG)
-    from fandom_search_tpu.ops.bucketed import probe_candidates
+    from fandom_search.ops.bucketed import probe_candidates
 
     cand, ok, _ = probe_candidates(
         q_stream, bidx.entries, bidx.offsets,
@@ -119,7 +119,7 @@ def test_identical_shingle_found_via_every_pair(rng):
     )
     vals, idx = np.asarray(vals), np.asarray(idx)
     evals, eidx = (
-        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, K, DIM)
+        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, k=K, dim=DIM)
     )
     for qi in range(vals.shape[0]):
         assert idx[qi, 0] == qi == eidx[qi, 0]
@@ -147,10 +147,10 @@ def test_engine_with_bucketed_matches_exact_rows(rng):
     """End-to-end: engine rows with the bucketed prefilter equal the
     exact engine's rows (quotes are above-threshold, so the guarantee
     covers them)."""
-    from fandom_search_tpu.data.script_parser import parse_script
-    from fandom_search_tpu.search.engine import SearchEngine
-    from fandom_search_tpu.search.index import build_script_index
-    from fandom_search_tpu.utils.synthetic import (
+    from fandom_search.data.script_parser import parse_script
+    from fandom_search.search.engine import SearchEngine
+    from fandom_search.search.index import build_script_index
+    from fandom_search.utils.synthetic import (
         make_corpus_with_quotes, make_script, make_vocab,
     )
 
@@ -164,10 +164,10 @@ def test_engine_with_bucketed_matches_exact_rows(rng):
         rng, [ln.text for ln in lines], num_works=12, words_per_work=200,
         quotes_per_work=2, vocab=vocab,
     )
-    exact = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    exact = SearchEngine(index, cfg, interpret=True)
     want, _ = exact.search_works(works)
 
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     attach_bucketed_prefilter(eng, BCFG)
     assert eng.bucketed.ns_valid == index.num_shingles
     got, stats = eng.search_works(works)
@@ -177,7 +177,7 @@ def test_engine_with_bucketed_matches_exact_rows(rng):
 
     # stale prebuilt index is rejected
     with pytest.raises(ValueError, match="rebuild"):
-        other = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+        other = SearchEngine(index, cfg, interpret=True)
         bad = dataclasses.replace(eng.bucketed, ns_valid=3)
         attach_bucketed_prefilter(other, BCFG, bidx=bad)
 
@@ -187,7 +187,7 @@ def test_flat_candidates_match_exact_kernel_triples(rng):
     above-threshold top-k triples for guaranteed (>=3-match) rows."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import bucketed_candidates_flat
+    from fandom_search.ops.bucketed import bucketed_candidates_flat
 
     q_stream, s_stream = _world(rng, nq=512, ns=1500)
     windows = shingle_hashes(s_stream, SCFG)
@@ -210,7 +210,7 @@ def test_flat_candidates_match_exact_kernel_triples(rng):
     }
 
     evals, eidx = (
-        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, K, DIM)
+        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, k=K, dim=DIM)
     )
     q_windows = shingle_hashes(q_stream, SCFG)
     want_guaranteed = set()
@@ -232,7 +232,7 @@ def test_flat_candidates_budget_overflow_reported(rng):
     (> max_out) so the engine's sticky retry grows the budget."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import bucketed_candidates_flat
+    from fandom_search.ops.bucketed import bucketed_candidates_flat
 
     # every shingle identical (alternating 2-token stream): each query
     # pulls cap entries from every probe -> ~cap unique pairs per
@@ -264,7 +264,7 @@ def test_all_pairs_mode_guarantees_two_matches(rng):
 
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import bucketed_candidates_flat
+    from fandom_search.ops.bucketed import bucketed_candidates_flat
 
     bcfg = dc.replace(BCFG, pairs="all")
     q_stream, s_stream = _world(rng, nq=512, ns=1500)
@@ -286,7 +286,7 @@ def test_all_pairs_mode_guarantees_two_matches(rng):
     got = {(int(q), int(s)) for q, s in zip(qpos, sidx) if q >= 0}
 
     evals, eidx = (
-        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, K, DIM)
+        np.asarray(x) for x in topk_dot_jnp(q_emb, s_emb, k=K, dim=DIM)
     )
     q_windows = shingle_hashes(q_stream, SCFG)
     checked = 0
@@ -304,9 +304,9 @@ def _skewed_world(rng, num_lines=30, num_works=8, words_per_work=220):
     """A Zipf-like script: every line leads with the same stopword run
     (hot pair-buckets overflow cap), then unique words; works carry
     planted quotes of those lines."""
-    from fandom_search_tpu.data.script_parser import parse_script
-    from fandom_search_tpu.search.index import build_script_index
-    from fandom_search_tpu.utils.synthetic import (
+    from fandom_search.data.script_parser import parse_script
+    from fandom_search.search.index import build_script_index
+    from fandom_search.utils.synthetic import (
         make_corpus_with_quotes, make_vocab,
     )
 
@@ -329,10 +329,10 @@ def test_pure_mode_refuses_skewed_corpus(rng):
     """hybrid=False keeps the round-2 contract: a Zipf-skewed index
     (hot pair-buckets overflowing cap) is refused at attach time, not
     silently degraded."""
-    from fandom_search_tpu.search.engine import SearchEngine
+    from fandom_search.search.engine import SearchEngine
 
     _, index, _ = _skewed_world(rng)
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
     with pytest.raises(ValueError, match="too skewed"):
         attach_bucketed_prefilter(
             eng, dataclasses.replace(BCFG, hybrid=False)
@@ -345,18 +345,18 @@ def test_hybrid_rescues_skewed_corpus(seed):
     reroute through the exact kernel, and engine rows equal the exact
     engine's rows (where the pure bucketed path measured thresholded
     recall 0.06).  Fuzzed across corpus seeds."""
-    from fandom_search_tpu.search.engine import SearchEngine
+    from fandom_search.search.engine import SearchEngine
 
     rng = np.random.default_rng(seed)
     _, index, works = _skewed_world(rng)
     cfg = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=4096)
     )
-    exact = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    exact = SearchEngine(index, cfg, interpret=True)
     want, wstats = exact.search_works(works)
     assert wstats.num_verified > 0  # the planted quotes are findable
 
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     attach_bucketed_prefilter(eng, BCFG)  # no refusal in hybrid mode
     assert eng.bucketed.overflow_frac > 0.05
     got, stats = eng.search_works(works)
@@ -373,7 +373,7 @@ def test_hybrid_no_risk_keeps_pure_path(rng):
     runs)."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import (
+    from fandom_search.ops.bucketed import (
         bucketed_candidates_flat, bucketed_hybrid_parts,
     )
 
@@ -409,7 +409,7 @@ def test_hybrid_no_risk_keeps_pure_path(rng):
 def test_hybrid_risk_budget_retry(rng):
     """More at-risk queries than the sticky risk budget: the attach
     wrapper must grow the budget (pow2) and still produce exact rows."""
-    from fandom_search_tpu.search.engine import SearchEngine
+    from fandom_search.search.engine import SearchEngine
 
     # long stopword-only works: virtually every query shingle is at
     # risk, far beyond the 1024 floor
@@ -421,10 +421,10 @@ def test_hybrid_risk_budget_retry(rng):
     cfg = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=8192)
     )
-    exact = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    exact = SearchEngine(index, cfg, interpret=True)
     want, _ = exact.search_works(works)
 
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     attach_bucketed_prefilter(eng, BCFG)
     assert eng._bucketed_risk_budget == 1024
     got, _ = eng.search_works(works)
@@ -437,7 +437,7 @@ def test_next_qpow2_sizing():
     """Quarter-pow2 stage-2 sizing: overshoot <= 25% (pow2 rounding of
     a near-full at-risk set doubled stage 2 on skewed corpora —
     DESIGN.md §4.4), floor respected, pow2 values returned exactly."""
-    from fandom_search_tpu.ops.bucketed import _next_qpow2
+    from fandom_search.ops.bucketed import _next_qpow2
 
     assert _next_qpow2(0, 1024) == 1024
     assert _next_qpow2(1024, 1024) == 1024
@@ -465,7 +465,7 @@ def test_hybrid_english_skew_low_reroute(rng):
     -> this query rerouted through the exact kernel)."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import drive_hybrid
+    from fandom_search.ops.bucketed import drive_hybrid
 
     n = SCFG.n
     ns, nq, vocab = 8192, 2048, 1 << 11
@@ -495,10 +495,10 @@ def test_hybrid_english_skew_low_reroute(rng):
         s_pad, nsv, n=n, cap=bcfg.cap, num_buckets=bidx.num_buckets,
         salts=bidx.salts, k=K, dim=DIM, threshold=thr,
         pairs_mode="all", max_out=1 << 15, risk_budget=1024,
-        interpret=True, grow_max_out=True, use_pallas=False,
+        kernels=False, grow_max_out=True,
     )
     assert 0 < rc < 0.3 * nq  # rerouted, but a small fraction
-    ev, ei = topk_dot_jnp(q_emb, s_pad, K, DIM)
+    ev, ei = topk_dot_jnp(q_emb, s_pad, k=K, dim=DIM)
     evn, ein = np.asarray(ev), np.asarray(ei)
     q_windows = shingle_hashes(q_stream, SCFG)
     ncnt = int(cnt)
@@ -531,8 +531,8 @@ def test_native_table_build_parity(rng):
     """The C++ counting-sort table build (fastingest.cpp
     fs_bucketed_table) must be bit-identical to the NumPy
     stable-argsort path: entries, offsets, and overflow accounting."""
-    import fandom_search_tpu.ops.bucketed as B
-    from fandom_search_tpu.data.fast_tokenizer import native_available
+    import fandom_search.ops.bucketed as B
+    from fandom_search.data.fast_tokenizer import native_available
 
     if not native_available():
         pytest.skip("native library unavailable")
@@ -571,7 +571,7 @@ def test_seg_impl_matches_gather_impl(rng, pairs_mode):
     stream with at-risk queries through the hybrid (drop_risk) path."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import (
+    from fandom_search.ops.bucketed import (
         bucketed_candidates_flat, bucketed_hybrid_parts,
     )
 
@@ -617,7 +617,7 @@ def test_seg_stream_exact_fill():
     retry fires because the mass does not exceed the budget."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import _seg_stream
+    from fandom_search.ops.bucketed import _seg_stream
 
     ln = jnp.asarray([3, 2, 0, 0], jnp.int32)
     start = jnp.asarray([100, 200, 300, 400], jnp.int32)
@@ -646,7 +646,7 @@ def test_flat_path_rejects_degenerate_stream(rng):
     diverging on fabricated rows (round-3 advisor low)."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.ops.bucketed import bucketed_candidates_flat
+    from fandom_search.ops.bucketed import bucketed_candidates_flat
 
     q_stream, s_stream = _world(rng, nq=64, ns=500)
     windows = shingle_hashes(s_stream, SCFG)

@@ -1,14 +1,18 @@
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fandom_search_tpu.ops.distance_topk import topk_dot, topk_dot_jnp
-from fandom_search_tpu.search.oracle import topk_scores_np
+import fandom_search.ops.distance_topk as D
+from fandom_search.ops.distance_topk import (
+    NEG_INF, merge_topk, pad_rows, topk_dot, topk_dot_jnp, topk_dot_triton,
+)
+from fandom_search.search.oracle import topk_scores_np
 
 K, DIM = 10, 128
 
 
-def _rand_emb(rng, n):
-    return rng.integers(-6, 7, size=(n, DIM)).astype(np.int8)
+def _rand_emb(rng, n, dim=DIM):
+    return rng.integers(-6, 7, size=(n, dim)).astype(np.int8)
 
 
 def _check_against_oracle(vals, idx, q, s):
@@ -20,82 +24,82 @@ def _check_against_oracle(vals, idx, q, s):
     np.testing.assert_allclose(picked, np.asarray(vals), atol=1e-6)
 
 
+def _assert_exact(vals, idx, q, s, min_keep=-np.inf):
+    """Every entry the oracle ranks at or above ``min_keep`` is equal,
+    value and index (lowest index on ties); entries below it are
+    (NEG_INF, 0) padding, never a fabricated score."""
+    ovals, oidx = topk_scores_np(q, s, K, DIM)
+    v, i = np.asarray(vals), np.asarray(idx)
+    keep = np.isfinite(ovals) & (ovals >= min_keep)
+    np.testing.assert_array_equal(v[keep], ovals[keep])
+    np.testing.assert_array_equal(i[keep], oidx[keep])
+    assert (v[~keep] == NEG_INF).all() and (i[~keep] == 0).all()
+
+
+def _kernel(q, s, **kw):
+    return topk_dot(q, s, k=K, dim=DIM, kernels=True, interpret=True, **kw)
+
+
+def _plain(q, s, **kw):
+    return topk_dot(q, s, k=K, dim=DIM, kernels=False, **kw)
+
+
 def test_jnp_matches_oracle(rng):
     q, s = _rand_emb(rng, 100), _rand_emb(rng, 300)
-    vals, idx = topk_dot_jnp(q, s, K, DIM)
+    vals, idx = topk_dot_jnp(q, s, k=K, dim=DIM)
     _check_against_oracle(vals, idx, q, s)
 
 
 def test_pallas_matches_oracle_aligned(rng):
-    q, s = _rand_emb(rng, 512), _rand_emb(rng, 1024)
-    vals, idx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
-    _check_against_oracle(vals, idx, q, s)
+    q, s = _rand_emb(rng, 256), _rand_emb(rng, 512)
+    vals, idx = _kernel(q, s)
+    _assert_exact(vals, idx, q, s)
 
 
 def test_pallas_matches_oracle_ragged(rng):
     # Unaligned sizes exercise padding + the ns_valid mask.
     q, s = _rand_emb(rng, 300), _rand_emb(rng, 777)
-    vals, idx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
+    vals, idx = _kernel(q, s)
     assert vals.shape == (300, K)
-    _check_against_oracle(vals, idx, q, s)
+    _assert_exact(vals, idx, q, s)
 
 
 def test_pallas_multi_s_tile_merge(rng):
-    # >2 script tiles so the running merge really accumulates.
-    q, s = _rand_emb(rng, 256), _rand_emb(rng, 2048 + 100)
-    vals, idx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
-    _check_against_oracle(vals, idx, q, s)
-
-
-def test_pallas_q_transposed_matches_row_major(rng):
-    """Lane-major q ([D, NQ]) returns identical (vals, idx)."""
-    import jax.numpy as jnp
-
-    from fandom_search_tpu.ops.distance_topk import pad_rows, topk_dot_pallas
-
-    q, s = _rand_emb(rng, 256), _rand_emb(rng, 1500)
-    s_pad, ns = pad_rows(jnp.asarray(s), 2048)
-    v1, i1 = topk_dot_pallas(
-        jnp.asarray(q), s_pad, ns, K, DIM, interpret=True
-    )
-    v2, i2 = topk_dot_pallas(
-        jnp.asarray(q.T.copy()), s_pad, ns, K, DIM, interpret=True,
-        q_transposed=True,
-    )
-    np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
+    # Many script tiles so the running merge really accumulates.
+    q, s = _rand_emb(rng, 64), _rand_emb(rng, 2048 + 100)
+    vals, idx = _kernel(q, s)
+    _assert_exact(vals, idx, q, s)
 
 
 @pytest.mark.parametrize("dim2", [256, 512, 2048])
 def test_wide_dim_adapts_col_bits_or_falls_back_exact(rng, dim2):
     """Wide embeddings produce |score| past the 17-column-bit packing
-    budget.  Round 4 (VERDICT r3 #6): the packed kernel now trades
-    column bits for score bits (dim=256 -> 16 bits, 512 -> 15), so
-    these run the FAST kernel; dim=2048 (|score| 73728 > the 14-bit
-    budget 65535) still takes the exact unpacked fallback.  All must
-    return exact results (regression: the packed kernel silently
-    corrupted top-k above the budget)."""
+    budget: the packed kernel trades column bits for score bits
+    (dim=256 -> 16 bits, 512 -> 15); dim=2048 (|score| 73728 > the
+    14-bit budget 65535) takes the exact unpacked path.  All must
+    return exact results."""
     q = rng.integers(-6, 7, size=(128, dim2)).astype(np.int8)
     s = rng.integers(-6, 7, size=(64, dim2)).astype(np.int8)
     # a strong planted match: dot = 36*dim, past the 17-bit budget
     s[5] = q[0] = np.full(dim2, 6, np.int8)
-    vals, idx = topk_dot(
-        q, s, K, dim2, use_pallas=True, interpret=True,
-        max_abs_score=6 * 6 * dim2,
-    )
-    full = q.astype(np.int32) @ s.astype(np.int32).T / dim2
-    want = np.sort(full, axis=1)[:, ::-1][:, :K]
-    np.testing.assert_allclose(np.asarray(vals), want, atol=1e-6)
-    assert int(np.asarray(idx)[0, 0]) == 5
+    for kernels in (True, False):
+        vals, idx = topk_dot(
+            q, s, k=K, dim=dim2, kernels=kernels, interpret=True,
+            max_abs_score=6 * 6 * dim2,
+        )
+        full = q.astype(np.int32) @ s.astype(np.int32).T / dim2
+        want = np.sort(full, axis=1)[:, ::-1][:, :K]
+        np.testing.assert_allclose(np.asarray(vals), want, atol=1e-6)
+        assert int(np.asarray(idx)[0, 0]) == 5
 
 
 def test_pallas_duplicate_rows_ties(rng):
-    # Duplicate script shingles -> exact score ties; vals must still match.
+    # Duplicate script shingles -> exact score ties; lowest index wins.
     s_half = _rand_emb(rng, 256)
     s = np.concatenate([s_half, s_half], axis=0)
     q = s_half[:64]
-    vals, idx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
-    _check_against_oracle(vals, idx, q, s)
+    vals, idx = _kernel(q, s)
+    _assert_exact(vals, idx, q, s)
     # self-match must be in the top-k of each query (huge self-dot)
     self_scores = (q.astype(np.int32) * q.astype(np.int32)).sum(1) / DIM
     assert np.allclose(np.asarray(vals)[:, 0], self_scores)
@@ -104,281 +108,145 @@ def test_pallas_duplicate_rows_ties(rng):
 def test_empty_inputs():
     q = np.zeros((0, DIM), dtype=np.int8)
     s = np.zeros((5, DIM), dtype=np.int8)
-    vals, idx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
+    vals, idx = _kernel(q, s)
     assert vals.shape == (0, K) and idx.shape == (0, K)
 
 
 def test_oracle_boundary_ties_lowest_index(rng):
     # >k exactly-tied scores at the k-th boundary: the oracle must pick
-    # the LOWEST indices, matching lax.top_k and the Pallas merge rule
+    # the LOWEST indices, matching the plain path and the kernel
     # (argpartition alone picks an arbitrary tied subset).
     base = rng.integers(-3, 4, size=(5, DIM)).astype(np.int8)
     s = base[rng.integers(0, 5, size=300)]
     q = base[rng.integers(0, 5, size=64)]
     ovals, oidx = topk_scores_np(q, s, K, DIM)
-    jvals, jidx = topk_dot_jnp(q, s, K, DIM)
+    jvals, jidx = topk_dot_jnp(q, s, k=K, dim=DIM)
     np.testing.assert_allclose(ovals, np.asarray(jvals), atol=1e-6)
     np.testing.assert_array_equal(oidx, np.asarray(jidx))
-    pvals, pidx = topk_dot(q, s, K, DIM, use_pallas=True, interpret=True)
+    pvals, pidx = _kernel(q, s)
     np.testing.assert_array_equal(oidx, np.asarray(pidx))
 
 
 def test_min_keep_gating_exact_above_threshold(rng):
     # With min_keep set, entries >= min_keep must be exactly the
-    # oracle's (sub-threshold rows may return padding).
+    # oracle's (sub-threshold entries come back as padding).
     thr = 3.5
-    q, s = _rand_emb(rng, 300), _rand_emb(rng, 3000)
+    q, s = _rand_emb(rng, 128), _rand_emb(rng, 1500)
     # plant strong matches for some queries so gating has both regimes
     s[100:150] = q[:50]
-    vals, idx = topk_dot(
-        q, s, K, DIM, use_pallas=True, interpret=True, min_keep=thr
-    )
-    ovals, oidx = topk_scores_np(q, s, K, DIM)
-    g, o = np.asarray(vals), ovals
-    keep = o >= thr
-    np.testing.assert_allclose(g[keep], o[keep], atol=1e-6)
-    gi = np.asarray(idx)
-    np.testing.assert_array_equal(gi[keep], oidx[keep])
-    # padding never fabricates an above-threshold score
-    fake = (g >= thr) & ~keep
-    assert not fake.any()
+    vals, idx = _kernel(q, s, min_keep=thr)
+    _assert_exact(vals, idx, q, s, min_keep=thr)
+    assert (np.asarray(vals) >= thr).sum() >= 50
 
 
 def test_column_chunking_beyond_pack_range(rng, monkeypatch):
     # Scripts wider than 2^COL_BITS shingles process in column chunks
-    # with a cross-chunk lax.top_k merge.  Exercise the chunk logic with
+    # with an exact cross-chunk merge.  Exercise the chunk logic with
     # shrunken constants (8 column bits -> 256-column chunks).
-    import fandom_search_tpu.ops.distance_topk as D
-
     monkeypatch.setattr(D, "_COL_BITS", 8)  # _col_bits_for reads it live
     q, s = _rand_emb(rng, 64), _rand_emb(rng, 700)  # 3 chunks of <=256
-    vals, idx = D.topk_dot_pallas(
-        jnp_pad(q, 128), jnp_pad(s, 128), s.shape[0], K, DIM,
-        tile_q=64, tile_s=128, interpret=True,
+    qp, _ = pad_rows(jnp.asarray(q), 64)
+    sp, _ = pad_rows(jnp.asarray(s), 64)
+    vals, idx = topk_dot_triton(
+        qp, sp, s.shape[0], k=K, dim=DIM, interpret=True,
+        tile_q=64, tile_s=64, max_abs_score=100,
     )
-    vals, idx = vals[: q.shape[0]], idx[: q.shape[0]]
-    _check_against_oracle(vals, idx, q, s)
+    _assert_exact(vals[: q.shape[0]], idx[: q.shape[0]], q, s)
 
 
-def jnp_pad(x, mult):
-    import jax.numpy as jnp
-    from fandom_search_tpu.ops.distance_topk import pad_rows
-
-    p, _ = pad_rows(jnp.asarray(x), mult)
-    return p
+# ---- kernel cases: shapes, ties, the min_keep gate, chunking ---------------
 
 
-def test_insert_merge_equals_rebuild_merge(rng):
-    """The round-2 insert merge must reproduce the round-1 rebuild merge
-    bit-for-bit, in exact mode and in min_keep (engine) mode, including
-    adversarial rows with many tied/above-threshold entries."""
-    from fandom_search_tpu.config import ShingleConfig
-    from fandom_search_tpu.data.shingler import embed_shingles_np
-    from fandom_search_tpu.ops.distance_topk import (
-        pad_rows, topk_dot_pallas,
+@pytest.mark.parametrize(
+    "nq,ns", [(1, 1), (63, 65), (64, 64), (65, 129), (130, 700), (7, 2100)]
+)
+def test_kernel_ragged_shapes_exact(rng, nq, ns):
+    """Ragged NQ and NS (one row, fewer columns than k, a partial last
+    tile) pad correctly: padded script rows never enter, padded query
+    rows are dropped."""
+    q, s = _rand_emb(rng, nq), _rand_emb(rng, ns)
+    vals, idx = _kernel(q, s)
+    assert vals.shape == (nq, K) and idx.shape == (nq, K)
+    _assert_exact(vals, idx, q, s)
+    pv, pi = _plain(q, s)
+    np.testing.assert_array_equal(np.asarray(vals), np.asarray(pv))
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(pi))
+
+
+@pytest.mark.parametrize("thr", [1.0 / DIM, 2.0, 3.5, 6.0])
+def test_kernel_min_keep_gate(rng, thr):
+    """Entries >= min_keep are the oracle's; everything below is padding,
+    on both paths alike.  thr=1/DIM is the smallest positive gate
+    (padded zero columns must still never enter)."""
+    q, s = _rand_emb(rng, 96), _rand_emb(rng, 600)
+    s[10:40] = q[:30]
+    s[500] = s[10]  # a tied duplicate of a planted row
+    vals, idx = _kernel(q, s, min_keep=thr)
+    _assert_exact(vals, idx, q, s, min_keep=thr)
+    pv, pi = _plain(q, s, min_keep=thr)
+    np.testing.assert_array_equal(np.asarray(vals), np.asarray(pv))
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(pi))
+
+
+@pytest.mark.parametrize("copies", [2, 12])
+def test_kernel_ties_across_tiles(rng, copies):
+    """One script row repeated in several tiles: every copy ties, and
+    the k lowest-index copies win, in ascending index order."""
+    s = _rand_emb(rng, 64 * copies)
+    row = _rand_emb(rng, 1)[0]
+    where = np.arange(copies) * 64 + 3
+    s[where] = row
+    q = np.stack([row] * 5)
+    vals, idx = _kernel(q, s)
+    _assert_exact(vals, idx, q, s)
+    n = min(copies, K)
+    np.testing.assert_array_equal(np.asarray(idx)[:, :n], np.tile(where[:n], (5, 1)))
+
+
+@pytest.mark.parametrize("col_bits", [7, 8])
+@pytest.mark.parametrize("kernels", [True, False])
+def test_column_chunks_both_paths(rng, monkeypatch, col_bits, kernels):
+    monkeypatch.setattr(D, "_COL_BITS", col_bits)
+    q, s = _rand_emb(rng, 70), _rand_emb(rng, 530)
+    s[400] = s[3] = q[0]  # a tie that spans two chunks
+    vals, idx = topk_dot(
+        q, s, k=K, dim=DIM, kernels=kernels, interpret=True,
+        max_abs_score=100,
     )
-
-    scfg = ShingleConfig()
-    nq, ns = 512, 4096
-    q_stream = rng.integers(0, 2**32, size=nq + scfg.n - 1, dtype=np.uint32)
-    s_stream = rng.integers(0, 2**32, size=ns + scfg.n - 1, dtype=np.uint32)
-    # dense plants: some rows get MANY above-threshold entries so the
-    # insert loop must run all k iterations
-    for qi in range(0, nq, 3):
-        si = int(rng.integers(0, ns - 20))
-        q_stream[qi : qi + scfg.n] = s_stream[si : si + scfg.n]
-    s_stream[100:130] = s_stream[100]  # repeated script region -> ties
-    q_emb = embed_shingles_np(q_stream, scfg)
-    s_emb = embed_shingles_np(s_stream, scfg)
-    import jax.numpy as jnp
-
-    sp, nsv = pad_rows(jnp.asarray(s_emb), 512)
-    # exact mode: bit-identical
-    vi, ii = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=-float("inf"), merge="insert",
-    )
-    vr, ir = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=-float("inf"), merge="rebuild",
-    )
-    np.testing.assert_array_equal(np.asarray(vi), np.asarray(vr))
-    np.testing.assert_array_equal(np.asarray(ii), np.asarray(ir))
-    # the round-3 fast-path insert must match its loop-only A/B control
-    vl, il = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=-float("inf"), merge="insertloop",
-    )
-    np.testing.assert_array_equal(np.asarray(vl), np.asarray(vr))
-    np.testing.assert_array_equal(np.asarray(il), np.asarray(ir))
-
-    # min_keep (engine) mode: the contract only covers entries >= the
-    # threshold (sub-threshold rows may legally return padding, and the
-    # insert merge skips them more aggressively than rebuild did) — the
-    # above-threshold (value, index) prefix must agree exactly
-    mk = 3.5
-    vi, ii = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=mk, merge="insert",
-    )
-    vr, ir = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=mk, merge="rebuild",
-    )
-    vi, ii, vr, ir = (np.asarray(x) for x in (vi, ii, vr, ir))
-    keep_i, keep_r = vi >= mk, vr >= mk
-    np.testing.assert_array_equal(keep_i, keep_r)
-    np.testing.assert_array_equal(vi[keep_i], vr[keep_r])
-    np.testing.assert_array_equal(ii[keep_i], ir[keep_r])
-    assert keep_i.sum() > 100  # plants actually exercised this
-
-    # static-dispatch boundary: min_keep_i == 1 takes the raw-score
-    # fast path, min_keep_i == 0 the staged loop — both must agree
-    # with rebuild on the above-threshold prefix
-    for mk_b in (1.0 / DIM, 0.0):
-        vb, ib = topk_dot_pallas(
-            jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-            interpret=True, min_keep=mk_b, merge="insert",
-        )
-        vc, ic = topk_dot_pallas(
-            jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-            interpret=True, min_keep=mk_b, merge="rebuild",
-        )
-        vb, ib, vc, ic = (np.asarray(x) for x in (vb, ib, vc, ic))
-        kb, kc = vb >= mk_b, vc >= mk_b
-        np.testing.assert_array_equal(kb, kc)
-        np.testing.assert_array_equal(vb[kb], vc[kc])
-        np.testing.assert_array_equal(ib[kb], ic[kc])
+    _assert_exact(vals, idx, q, s)
+    assert int(np.asarray(idx)[0, 0]) == 3
 
 
-def test_gate_cols_subtile_gating_parity(rng):
-    """Sub-tile column gating (gate_cols > 1) must reproduce the
-    single-gate insert merge on the above-threshold prefix — same
-    adversarial world as the merge-parity test (dense plants, tied
-    script regions), plus a padded-edge corpus so each block's
-    padded-column reasoning is exercised."""
-    from fandom_search_tpu.config import ShingleConfig
-    from fandom_search_tpu.data.shingler import embed_shingles_np
-    from fandom_search_tpu.ops.distance_topk import (
-        pad_rows, topk_dot_pallas,
-    )
-    import jax.numpy as jnp
-
-    scfg = ShingleConfig()
-    nq, ns = 512, 3100  # ragged: padding lands inside the last tile
-    q_stream = rng.integers(0, 2**32, size=nq + scfg.n - 1, dtype=np.uint32)
-    s_stream = rng.integers(0, 2**32, size=ns + scfg.n - 1, dtype=np.uint32)
-    for qi in range(0, nq, 3):
-        si = int(rng.integers(0, ns - 20))
-        q_stream[qi : qi + scfg.n] = s_stream[si : si + scfg.n]
-    s_stream[100:130] = s_stream[100]  # ties
-    q_emb = embed_shingles_np(q_stream, scfg)
-    s_emb = embed_shingles_np(s_stream, scfg)
-    sp, nsv = pad_rows(jnp.asarray(s_emb), 1024)
-    mk = 3.5
-    v1, i1 = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=1024,
-        interpret=True, min_keep=mk, merge="insert",
-    )
-    v1, i1 = np.asarray(v1), np.asarray(i1)
-    k1 = v1 >= mk
-    assert k1.sum() > 100
-    qt = jnp.asarray(np.ascontiguousarray(q_emb.T))
-    for gc in (2, 4, 8):
-        vg, ig = topk_dot_pallas(
-            jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=1024,
-            interpret=True, min_keep=mk, merge="insert", gate_cols=gc,
-        )
-        vg, ig = np.asarray(vg), np.asarray(ig)
-        kg = vg >= mk
-        np.testing.assert_array_equal(kg, k1)
-        np.testing.assert_array_equal(vg[kg], v1[k1])
-        np.testing.assert_array_equal(ig[kg], i1[k1])
-        # the engine's lane-major layout (q_transposed) must agree too
-        vt, it = topk_dot_pallas(
-            qt, sp, nsv, K, DIM, tile_s=1024, interpret=True,
-            min_keep=mk, merge="insert", gate_cols=gc,
-            q_transposed=True,
-        )
-        vt, it = np.asarray(vt), np.asarray(it)
-        kt = vt >= mk
-        np.testing.assert_array_equal(kt, k1)
-        np.testing.assert_array_equal(vt[kt], v1[k1])
-        np.testing.assert_array_equal(it[kt], i1[k1])
+# ---- plain path: bounded chunks ---------------------------------------------
 
 
-def test_gate_cols_validation():
-    """gate_cols must divide tile_s into 128-multiple blocks."""
-    import jax.numpy as jnp
-    import pytest
-
-    from fandom_search_tpu.ops.distance_topk import topk_dot_pallas
-
-    q = jnp.zeros((128, DIM), jnp.int8)
-    s = jnp.zeros((2048, DIM), jnp.int8)
-    with pytest.raises(ValueError, match="gate_cols"):
-        topk_dot_pallas(
-            q, s, 2048, K, DIM, tile_s=2048, interpret=True,
-            min_keep=3.5, gate_cols=3,
-        )
+@pytest.mark.parametrize("chunk", [8, 16, 64, 256, None])
+def test_plain_chunk_sizes_agree(rng, chunk):
+    """Every query-chunk size gives the oracle's answer (the last chunk
+    is partial for all but the largest)."""
+    q, s = _rand_emb(rng, 200), _rand_emb(rng, 333)
+    vals, idx = topk_dot_jnp(q, s, k=K, dim=DIM, chunk=chunk)
+    _assert_exact(vals, idx, q, s)
 
 
-def test_rows_merge_equals_insert_merge(rng):
-    """The round-4 row-extraction merge (VERDICT r3 #5) must reproduce
-    the insert merge's above-threshold prefix at every density: sparse
-    (one entrant per firing tile — the one-hot fast path), dense
-    (multi-entrant rows + more entrant rows than max_rows, forcing the
-    staged-fallback branch), and with repeated script regions (packed
-    tie-breaking through the per-row kill loop)."""
-    from fandom_search_tpu.config import ShingleConfig
-    from fandom_search_tpu.data.shingler import embed_shingles_np
-    from fandom_search_tpu.ops.distance_topk import (
-        pad_rows, topk_dot_pallas,
-    )
+@pytest.mark.parametrize("ns", [1, 2048, 16384, 1 << 17])
+def test_plain_chunk_scratch_bounded(ns):
+    """The plain path's score block is at most 256 MiB, whatever NQ."""
+    rows = D._plain_chunk_rows(ns)
+    assert 8 <= rows <= 8192 and rows & (rows - 1) == 0
+    assert rows * ns * 4 <= (1 << 28) or rows == 8
 
-    scfg = ShingleConfig()
-    nq, ns = 512, 4096
-    s_stream = rng.integers(0, 2**32, size=ns + scfg.n - 1, dtype=np.uint32)
-    s_stream[100:130] = s_stream[100]  # repeated script region -> ties
-    s_emb = embed_shingles_np(s_stream, scfg)
-    import jax.numpy as jnp
 
-    sp, nsv = pad_rows(jnp.asarray(s_emb), 512)
-    for stride, mk in ((101, 3.5), (3, 3.5), (3, 1.0 / DIM)):
-        q_stream = rng.integers(
-            0, 2**32, size=nq + scfg.n - 1, dtype=np.uint32
-        )
-        for qi in range(0, nq, stride):
-            si = int(rng.integers(0, ns - 20))
-            q_stream[qi : qi + scfg.n] = s_stream[si : si + scfg.n]
-        q_emb = embed_shingles_np(q_stream, scfg)
-        qt = jnp.asarray(np.ascontiguousarray(q_emb.T))
-        vi, ii = topk_dot_pallas(
-            qt, sp, nsv, K, DIM, tile_s=512, interpret=True,
-            min_keep=mk, q_transposed=True, merge="insert",
-        )
-        vr, ir = topk_dot_pallas(
-            qt, sp, nsv, K, DIM, tile_s=512, interpret=True,
-            min_keep=mk, q_transposed=True, merge="rows",
-        )
-        vi, ii, vr, ir = (np.asarray(x) for x in (vi, ii, vr, ir))
-        keep_i, keep_r = vi >= mk, vr >= mk
-        np.testing.assert_array_equal(keep_i, keep_r)
-        np.testing.assert_array_equal(vi[keep_i], vr[keep_r])
-        np.testing.assert_array_equal(ii[keep_i], ir[keep_r])
-        assert keep_i.sum() > (20 if stride > 50 else 50)
+def test_plain_masks_padded_columns(rng):
+    q, s = _rand_emb(rng, 20), _rand_emb(rng, 40)
+    s_pad = np.concatenate([s, np.full((24, DIM), 6, np.int8)])
+    vals, idx = topk_dot_jnp(q, s_pad, 40, k=K, dim=DIM)
+    _assert_exact(vals, idx, q, s)
 
-    # exact mode routes rows -> insertloop statically; must equal insert
-    q_emb = embed_shingles_np(
-        rng.integers(0, 2**32, size=nq + scfg.n - 1, dtype=np.uint32), scfg
-    )
-    vi, ii = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=-float("inf"), merge="insert",
-    )
-    vr, ir = topk_dot_pallas(
-        jnp.asarray(q_emb), sp, nsv, K, DIM, tile_s=512,
-        interpret=True, min_keep=-float("inf"), merge="rows",
-    )
-    np.testing.assert_array_equal(np.asarray(vi), np.asarray(vr))
-    np.testing.assert_array_equal(np.asarray(ii), np.asarray(ir))
+
+def test_merge_topk_lowest_index_on_ties():
+    vals = jnp.asarray([[1.0, 3.0, 3.0, 2.0, 3.0]])
+    idx = jnp.asarray([[9, 7, 2, 1, 5]], jnp.int32)
+    v, i = merge_topk(vals, idx, 3)
+    np.testing.assert_array_equal(np.asarray(v), [[3.0, 3.0, 3.0]])
+    np.testing.assert_array_equal(np.asarray(i), [[2, 5, 7]])

@@ -1,16 +1,16 @@
-"""End-to-end TPU engine vs the CPU oracle (SURVEY.md section 5 golden test)."""
+"""End-to-end device engine vs the CPU oracle (SURVEY.md section 5 golden test)."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.search.oracle import search_works_oracle
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.search.oracle import search_works_oracle
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -48,7 +48,7 @@ def _row_key(r):
 def test_engine_jnp_matches_oracle(world):
     works, planted, index = world
     oracle_rows, _ = search_works_oracle(works, index, CFG)
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     rows, stats = eng.search_works(works)
     assert {_row_key(r) for r in rows} == {_row_key(r) for r in oracle_rows}
     assert stats.num_works == len(works)
@@ -58,7 +58,7 @@ def test_engine_jnp_matches_oracle(world):
 def test_engine_pallas_matches_oracle(world):
     works, planted, index = world
     oracle_rows, _ = search_works_oracle(works, index, CFG)
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
     rows, _ = eng.search_works(works)
     assert {_row_key(r) for r in rows} == {_row_key(r) for r in oracle_rows}
     # scores should agree to rounding
@@ -71,7 +71,7 @@ def test_engine_pallas_matches_oracle(world):
 
 def test_engine_finds_planted(world):
     works, planted, index = world
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     rows, _ = eng.search_works(works)
     found = {(r.work_id, r.line_no) for r in rows}
     missed = [p for p in planted if (p.work_id, p.line_no) not in found]
@@ -80,7 +80,7 @@ def test_engine_finds_planted(world):
 
 def test_engine_empty_and_short_works(world):
     _, _, index = world
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     rows, stats = eng.search_works({"empty": "", "short": "two words"})
     assert rows == []
     assert stats.num_works == 2
@@ -92,7 +92,7 @@ def test_engine_multi_batch(world):
     small = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=512)
     )
-    eng = SearchEngine(index, small, use_pallas=False)
+    eng = SearchEngine(index, small)
     rows, stats = eng.search_works(works)
     assert stats.num_batches > 1
     oracle_rows, _ = search_works_oracle(works, index, small)
@@ -102,7 +102,7 @@ def test_engine_multi_batch(world):
 def test_nonzero_compact_matches_builtin(rng):
     import jax.numpy as jnp
 
-    from fandom_search_tpu.search.engine import nonzero_compact
+    from fandom_search.search.engine import nonzero_compact
 
     for frac, size in [(0.0, 64), (0.01, 128), (0.5, 4096), (1.0, 512)]:
         mask = rng.random(4096) < frac
@@ -117,9 +117,9 @@ def test_chain_hits_arrays_equals_object_chainer(world):
     """Property: the vectorized chainer reproduces chain_hits exactly
     on random (already-deduped) hit sets."""
     works, _, index = world
-    from fandom_search_tpu.data.fast_tokenizer import tokenize_many
-    from fandom_search_tpu.search.chain import chain_hits, chain_hits_arrays
-    from fandom_search_tpu.search.types import CandidateHit
+    from fandom_search.data.fast_tokenizer import tokenize_many
+    from fandom_search.search.chain import chain_hits, chain_hits_arrays
+    from fandom_search.search.types import CandidateHit
 
     tokenized = tokenize_many({w: t for w, t in works.items()})
     wids = sorted(tokenized)
@@ -157,10 +157,10 @@ def test_chain_hits_arrays_equals_object_chainer(world):
 def test_stream_buckets_scale_with_content(world):
     """Small corpora upload small pow2 buckets, capped at batch_queries."""
     _, _, index = world
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     g = eng._batch_granule
     n = CFG.shingle.n
-    from fandom_search_tpu.data.fast_tokenizer import tokenize_many
+    from fandom_search.data.fast_tokenizer import tokenize_many
 
     def tpads_for(total_tokens):
         text = " ".join(f"w{i % 97}" for i in range(total_tokens))
@@ -185,7 +185,7 @@ def test_bucketed_batches_match_oracle(world):
     """Rows are identical when works straddle several bucket sizes."""
     works, _, index = world
     # granule shrunk so the fixture corpus spans multiple rungs
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     eng._batch_granule = 256
     rows, stats = eng.search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, CFG)
@@ -203,7 +203,7 @@ def test_engine_giant_work_split(world):
     small = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=1024)
     )
-    eng = SearchEngine(index, small, use_pallas=False)
+    eng = SearchEngine(index, small)
     rows, _ = eng.search_works({"giant": giant})
     assert any(r.line_no == 5 for r in rows)
 
@@ -229,7 +229,7 @@ def test_giant_work_split_exact_oracle_parity(world):
     small = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=cap)
     )
-    eng = SearchEngine(index, small, use_pallas=False)
+    eng = SearchEngine(index, small)
     rows, _ = eng.search_works({"giant": giant})
     oracle_rows, _ = search_works_oracle({"giant": giant}, index, small)
     assert [r.to_csv_row() for r in rows] == [
@@ -267,7 +267,7 @@ def test_engine_fuzz_parity(seed):
         num_edits=int(rng.integers(0, 3)),
         vocab=vocab,
     )
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     rows, _ = eng.search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, cfg)
     assert sorted(r.to_csv_row() for r in rows) == sorted(
@@ -293,7 +293,7 @@ def test_repeated_word_lines_parity():
         "w0": filler + " " + " ".join(["drum"] * 12) + " " + filler,
         "w1": " ".join(["drum"] * 30),
     }
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
     rows, _ = eng.search_works(works)
     oracle_rows, _ = search_works_oracle(works, index, CFG)
     assert sorted(r.to_csv_row() for r in rows) == sorted(
@@ -307,7 +307,7 @@ def test_long_line_tail_quote_verifies():
     # (round 1 truncated lines to max_line_tokens=64, so tail quotes of
     # long monologues could never match).
     rng = np.random.default_rng(77)
-    from fandom_search_tpu.utils.synthetic import make_vocab
+    from fandom_search.utils.synthetic import make_vocab
 
     vocab = make_vocab(rng, 3000)
     long_words = [vocab[i] for i in rng.integers(0, len(vocab), 200)]
@@ -326,7 +326,7 @@ def test_long_line_tail_quote_verifies():
     works = {"w_tail": f"{noise} {tail_quote} {noise}"}
 
     oracle_rows, _ = search_works_oracle(works, index, CFG)
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
     rows, _ = eng.search_works(works)
 
     assert any(
@@ -340,16 +340,16 @@ def test_candidate_budget_overflow_retries(world, caplog):
     # A tiny candidate budget must not drop matches: the engine reruns
     # the batch with a doubled budget until everything fits.
     works, planted, index = world
-    big = SearchEngine(index, CFG, use_pallas=False)
+    big = SearchEngine(index, CFG)
     rows_big, _ = big.search_works(works)
 
     tiny_cfg = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, max_candidates_per_batch=8)
     )
-    tiny = SearchEngine(index, tiny_cfg, use_pallas=False)
+    tiny = SearchEngine(index, tiny_cfg)
     import logging
 
-    with caplog.at_level(logging.INFO, logger="fandom_search_tpu.search.engine"):
+    with caplog.at_level(logging.INFO, logger="fandom_search.search.engine"):
         rows_tiny, _ = tiny.search_works(works)
     assert tiny._cand_budget > 8, "budget never grew despite overflow"
     assert {_row_key(r) for r in rows_tiny} == {_row_key(r) for r in rows_big}
@@ -362,7 +362,7 @@ def test_recall_curve_over_edit_distance():
     # (10-e)/10 after alignment, so e <= 4 clears verify_threshold=0.35
     # comfortably; pure noise must produce nothing.
     rng = np.random.default_rng(123)
-    from fandom_search_tpu.utils.synthetic import make_vocab
+    from fandom_search.utils.synthetic import make_vocab
 
     vocab = make_vocab(rng, 3000)
     script_lines = [
@@ -372,7 +372,7 @@ def test_recall_curve_over_edit_distance():
     script_text = "\n".join(f"ALICE: {t}" for t in script_lines)
     lines = parse_script(script_text)
     index = build_script_index(lines, CFG.shingle, CFG.search)
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
 
     for edits in (0, 1, 2, 3):
         works, planted = make_corpus_with_quotes(
@@ -399,13 +399,13 @@ def test_recall_curve_over_edit_distance():
 
 def test_precompile_seen_and_warm_buckets(world):
     """precompile_seen() re-invokes every fused variant seen so far on
-    a synthetic no-match stream (VERDICT r3 #8: budget growth mid-pass
-    leaves early buckets compiled at stale budgets; the next pass paid
-    a 36-52s remote recompile).  It must not change results or grow
+    a synthetic no-match stream (budget growth mid-pass leaves early
+    buckets compiled at stale budgets, which the next pass would
+    recompile on its timed path).  It must not change results or grow
     the budgets; warm_buckets() pre-compiles the smallest and full-cap
     buckets before any search."""
     works, planted, index = world
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, CFG, interpret=True)
     rows1, _ = eng.search_works(works)
     assert eng._seen_variants  # the pass recorded its fused variants
     cand0, ver0 = eng._cand_budget, eng._verify_budget
@@ -421,7 +421,7 @@ def test_precompile_seen_and_warm_buckets(world):
     cfg_small = dataclasses.replace(
         CFG, search=dataclasses.replace(CFG.search, batch_queries=1 << 14)
     )
-    eng2 = SearchEngine(index, cfg_small, use_pallas=True, interpret=True)
+    eng2 = SearchEngine(index, cfg_small, interpret=True)
     assert eng2.warm_buckets() >= 1
     rows3, _ = eng2.search_works(works)
     assert {_row_key(r) for r in rows1} == {_row_key(r) for r in rows3}
@@ -429,35 +429,19 @@ def test_precompile_seen_and_warm_buckets(world):
     # with a prefilter attached the engine never dispatches the fused
     # path — warming fused variants would burn the compile minutes
     # --warm exists to save, so it must no-op
-    from fandom_search_tpu.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search.ops.bucketed import attach_bucketed_prefilter
 
-    eng3 = SearchEngine(index, cfg_small, use_pallas=True, interpret=True)
+    eng3 = SearchEngine(index, cfg_small, interpret=True)
     attach_bucketed_prefilter(eng3, CFG.bucketed)
     assert eng3.warm_buckets() == 0
     assert not eng3._seen_variants
 
 
-def test_engine_exitw_rows_identical_to_default(world):
-    """The engine contract for variant="exitw" (threshold early exit,
-    round 5): output MatchRows — including reported verify scores —
-    must be IDENTICAL to the exact default variant, because the exit
-    may only corrupt sub-threshold residue the engine drops anyway
-    (ops/smith_waterman.py _sw_kernel_wide doc)."""
-    import dataclasses
-
+def test_engine_kernel_rows_identical_to_plain(world):
+    """The kernels (interpret mode) and the plain path give IDENTICAL
+    MatchRows, verify scores included: both are exact."""
     works, planted, index = world
-    eng = SearchEngine(index, CFG, use_pallas=True, interpret=True)
-    rows_default, _ = eng.search_works(works)
-    cfg_exit = dataclasses.replace(
-        CFG, search=dataclasses.replace(CFG.search, sw_variant="exitw")
-    )
-    eng_exit = SearchEngine(index, cfg_exit, use_pallas=True, interpret=True)
-    rows_exit, _ = eng_exit.search_works(works)
-    assert {_row_key(r) for r in rows_exit} == {
-        _row_key(r) for r in rows_default
-    }
-    d = {_row_key(r): (r.score, r.verify_score) for r in rows_default}
-    for r in rows_exit:
-        so, vo = d[_row_key(r)]
-        assert r.score == so
-        assert r.verify_score == vo
+    rows_k, _ = SearchEngine(index, CFG, interpret=True).search_works(works)
+    rows_p, _ = SearchEngine(index, CFG).search_works(works)
+    assert [r.to_csv_row() for r in rows_k] == [r.to_csv_row() for r in rows_p]
+    assert rows_k

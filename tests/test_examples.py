@@ -7,11 +7,11 @@ behavior changes) — the docs point new users here first.
 
 from pathlib import Path
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.search.oracle import search_works_oracle
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.search.oracle import search_works_oracle
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
@@ -26,7 +26,7 @@ def test_examples_quickstart_matches():
         for p in sorted((EXAMPLES / "fanworks").glob("*.txt"))
     }
     assert len(works) == 2
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     rows, stats = eng.search_works(works)
 
     # every fanwork quotes the script; MARA gets attributed

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from fandom_search_tpu.data.fast_tokenizer import (
+from fandom_search.data.fast_tokenizer import (
     fast_tokenize,
     native_available,
     tokenize_many,
 )
-from fandom_search_tpu.data.tokenizer import tokenize
+from fandom_search.data.tokenizer import tokenize
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native library unavailable"

@@ -1,6 +1,6 @@
 import numpy as np
 
-from fandom_search_tpu.data.hashing import (
+from fandom_search.data.hashing import (
     derive_sign_mults,
     fmix32,
     hash_word,

@@ -17,12 +17,12 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index, concat_indexes
-from fandom_search_tpu.search.oracle import search_works_oracle
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index, concat_indexes
+from fandom_search.search.oracle import search_works_oracle
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -83,7 +83,7 @@ def test_concat_index_tables(multi_world):
 
 def test_engine_oracle_parity_on_multi_index(multi_world):
     cfg, _, _, index, works, planted_a, planted_b = multi_world
-    eng = SearchEngine(index, cfg, use_pallas=False)
+    eng = SearchEngine(index, cfg)
     rows, _ = eng.search_works(works)
     orows, _ = search_works_oracle(works, index, cfg)
     assert sorted(map(_key, rows)) == sorted(map(_key, orows)) != []
@@ -109,13 +109,13 @@ def test_multi_equals_union_of_singles(multi_world):
         for n, _ in parts
     ]
     index = concat_indexes(parts)
-    multi_rows, _ = SearchEngine(index, cfg, use_pallas=False).search_works(
+    multi_rows, _ = SearchEngine(index, cfg).search_works(
         works
     )
     la = len(lines["alpha"])
     union = []
     for name, idx in parts:
-        rows, _ = SearchEngine(idx, cfg, use_pallas=False).search_works(works)
+        rows, _ = SearchEngine(idx, cfg).search_works(works)
         off = 0 if name == "alpha" else la
         union.extend(
             (r.work_id, r.fan_token_start, r.fan_token_end, r.line_no + off)
@@ -130,23 +130,23 @@ def test_multi_equals_union_of_singles(multi_world):
 
 def test_persist_roundtrip_scripts(multi_world, tmp_path):
     cfg, _, _, index, works, _, _ = multi_world
-    from fandom_search_tpu.search.persist import load_index, save_index
+    from fandom_search.search.persist import load_index, save_index
 
     save_index(index, cfg, tmp_path / "idx")
     loaded, cfg2 = load_index(tmp_path / "idx")
     assert [ln.script for ln in loaded.lines] == [
         ln.script for ln in index.lines
     ]
-    rows, _ = SearchEngine(loaded, cfg2, use_pallas=False).search_works(works)
-    base, _ = SearchEngine(index, cfg, use_pallas=False).search_works(works)
+    rows, _ = SearchEngine(loaded, cfg2).search_works(works)
+    base, _ = SearchEngine(index, cfg).search_works(works)
     assert sorted(map(_key, rows)) == sorted(map(_key, base))
 
 
 def test_matrix_carries_script_column(multi_world):
     cfg, _, _, index, works, _, _ = multi_world
-    from fandom_search_tpu.search.report import aggregate_matrix
+    from fandom_search.search.report import aggregate_matrix
 
-    rows, _ = SearchEngine(index, cfg, use_pallas=False).search_works(works)
+    rows, _ = SearchEngine(index, cfg).search_works(works)
     records = aggregate_matrix(rows, index.lines)
     assert all("script" in rec for rec in records)
     by_line = {rec["line_no"]: rec for rec in records}
@@ -163,11 +163,11 @@ def test_matrix_falls_back_to_row_scripts(multi_world):
     """`matrix --script one.txt` on a multi-script matches.csv: lines
     the provided script_lines can't label keep the attribution the
     match rows carry instead of a blank (advisor r2 low: report.py)."""
-    from fandom_search_tpu.data.script_parser import ScriptLine
-    from fandom_search_tpu.search.report import aggregate_matrix
+    from fandom_search.data.script_parser import ScriptLine
+    from fandom_search.search.report import aggregate_matrix
 
     cfg, _, _, index, works, _, _ = multi_world
-    rows, _ = SearchEngine(index, cfg, use_pallas=False).search_works(works)
+    rows, _ = SearchEngine(index, cfg).search_works(works)
     assert any(r.script for r in rows)
     # script_lines with EMPTY script labels (what parsing one lone file
     # produces), same global line_no space
@@ -185,15 +185,15 @@ def test_multiscript_with_bucketed_prefilter(multi_world):
     """The bucketed prefilter attaches to a multi-script (concatenated)
     index — concat_indexes carries shingle_windows — and reproduces the
     exact engine's rows including script attribution."""
-    from fandom_search_tpu.config import BucketedConfig
-    from fandom_search_tpu.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search.config import BucketedConfig
+    from fandom_search.ops.bucketed import attach_bucketed_prefilter
 
     cfg, _, _, index, works, _, _ = multi_world
-    exact = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    exact = SearchEngine(index, cfg, interpret=True)
     want, _ = exact.search_works(works)
     assert want
 
-    eng = SearchEngine(index, cfg, use_pallas=True, interpret=True)
+    eng = SearchEngine(index, cfg, interpret=True)
     attach_bucketed_prefilter(eng, BucketedConfig())
     got, _ = eng.search_works(works)
     key = lambda r: (  # noqa: E731

@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.data.tokenizer import tokenize
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.search.oracle import search_works_oracle, topk_scores_np
-from fandom_search_tpu.search.verify_np import sw_normalized_np, sw_score_np
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.data.tokenizer import tokenize
+from fandom_search.search.index import build_script_index
+from fandom_search.search.oracle import search_works_oracle, topk_scores_np
+from fandom_search.search.verify_np import sw_normalized_np, sw_score_np
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,

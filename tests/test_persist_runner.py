@@ -6,14 +6,14 @@ import sys
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.search.persist import load_index, save_index
-from fandom_search_tpu.search.runner import ResumableRunner
-from fandom_search_tpu.utils.profiling import StageTimer
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.search.persist import load_index, save_index
+from fandom_search.search.runner import ResumableRunner
+from fandom_search.utils.profiling import StageTimer
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -50,72 +50,61 @@ def test_save_load_roundtrip(tmp_path, world):
     assert [ln.text for ln in index2.lines] == [ln.text for ln in index.lines]
 
     # a loaded index must search identically
-    e1 = SearchEngine(index, CFG, use_pallas=False)
-    e2 = SearchEngine(index2, cfg2, use_pallas=False)
+    e1 = SearchEngine(index, CFG)
+    e2 = SearchEngine(index2, cfg2)
     r1, _ = e1.search_works(works)
     r2, _ = e2.search_works(works)
     assert [r.to_csv_row() for r in r1] == [r.to_csv_row() for r in r2]
 
 
-def test_save_load_lsh_roundtrip(tmp_path, world):
-    """Persisted LSH codes are bit-identical to an in-process build and
-    attach on a loaded index without rebuilding (round-1 Missing #4)."""
-    import dataclasses
-
-    from fandom_search_tpu.ops.lsh import LSHIndex, attach_lsh_prefilter
-    from fandom_search_tpu.search.persist import load_lsh, save_lsh
-
-    index, works, _ = world
-    lcfg = dataclasses.replace(CFG.lsh, bits=256, rerank=128)
-    lsh = LSHIndex.build(
-        index.embeddings, lcfg, CFG.shingle,
-        pad_multiple=CFG.search.script_pad_multiple,
-    )
+def test_index_files_are_npz_and_json(tmp_path, world):
+    """The saved index is plain NumPy archives plus JSON: loadable with
+    numpy alone, no checkpoint library."""
+    index, _, _ = world
     save_index(index, CFG, tmp_path / "idx")
-    save_lsh(tmp_path / "idx", lsh, lcfg)
+    names = sorted(p.name for p in (tmp_path / "idx").iterdir())
+    assert names == ["arrays.npz", "meta.json"]
+    with np.load(tmp_path / "idx" / "arrays.npz", allow_pickle=False) as z:
+        np.testing.assert_array_equal(z["embeddings"], index.embeddings)
+        assert z["embeddings"].dtype == np.int8
+        assert z["stream_hashes"].dtype == np.uint32
+    meta = json.loads((tmp_path / "idx" / "meta.json").read_text())
+    assert meta["version"] == 4 and "lsh" not in meta
 
-    loaded = load_lsh(tmp_path / "idx", lcfg)
-    assert loaded is not None
-    np.testing.assert_array_equal(
-        np.asarray(loaded.codes_t), np.asarray(lsh.codes_t)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(loaded.projection), np.asarray(lsh.projection)
-    )
-    assert loaded.ns_valid == lsh.ns_valid
 
-    # config mismatch -> None (caller rebuilds)
-    assert load_lsh(
-        tmp_path / "idx", dataclasses.replace(lcfg, bits=512)
-    ) is None
+def test_old_index_version_is_refused(tmp_path, world):
+    index, _, _ = world
+    save_index(index, CFG, tmp_path / "idx")
+    meta_p = tmp_path / "idx" / "meta.json"
+    meta = json.loads(meta_p.read_text())
+    meta["version"] = 3
+    meta_p.write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="rebuild"):
+        load_index(tmp_path / "idx")
 
-    # attach the persisted index to a loaded engine: identical rows to
-    # an engine whose prefilter was built in-process
-    index2, cfg2 = load_index(tmp_path / "idx")
-    e_fresh = SearchEngine(index, CFG, use_pallas=True, interpret=True)
-    attach_lsh_prefilter(e_fresh, lcfg)
-    e_loaded = SearchEngine(index2, cfg2, use_pallas=True, interpret=True)
-    attach_lsh_prefilter(e_loaded, lcfg, lsh=loaded)
-    r1, _ = e_fresh.search_works(works)
-    r2, _ = e_loaded.search_works(works)
-    assert [r.to_csv_row() for r in r1] == [r.to_csv_row() for r in r2]
 
-    # shape-mismatched prebuilt must be rejected, not silently used
-    bad = LSHIndex(
-        projection=np.asarray(loaded.projection),
-        codes_t=np.asarray(loaded.codes_t)[:, :-512],
-        ns_valid=loaded.ns_valid,
-    )
-    with pytest.raises(ValueError, match="does not match"):
-        attach_lsh_prefilter(
-            SearchEngine(index, CFG, use_pallas=True, interpret=True),
-            lcfg, lsh=bad,
-        )
+def test_save_overwrites_in_place(tmp_path, world):
+    """Saving twice to one directory leaves one complete archive (the
+    write goes through a temporary name, then replaces)."""
+    index, _, _ = world
+    save_index(index, CFG, tmp_path / "idx")
+    save_index(index, CFG, tmp_path / "idx")
+    assert not list((tmp_path / "idx").glob("*.tmp"))
+    index2, _ = load_index(tmp_path / "idx")
+    np.testing.assert_array_equal(index2.shingle_windows, index.shingle_windows)
+
+
+def test_no_module_imports_orbax():
+    import pathlib
+
+    pkg = pathlib.Path(__file__).resolve().parent.parent / "fandom_search"
+    for f in pkg.rglob("*.py"):
+        assert "orbax" not in f.read_text(encoding="utf-8"), f
 
 
 def test_resumable_runner(tmp_path, world):
     index, works, planted = world
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     direct, _ = eng.search_works(works)
 
     out = tmp_path / "run"
@@ -150,8 +139,8 @@ def test_resumable_runner_sharded(tmp_path, world):
 
     import jax
 
-    from fandom_search_tpu.config import MeshConfig
-    from fandom_search_tpu.parallel.sharded import ShardedSearchEngine
+    from fandom_search.config import MeshConfig
+    from fandom_search.parallel.sharded import ShardedSearchEngine
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices (conftest provisions 8)")
@@ -160,7 +149,7 @@ def test_resumable_runner_sharded(tmp_path, world):
         PipelineConfig(mesh=MeshConfig(works=4, script=1)),
         search=dataclasses.replace(CFG.search, batch_queries=4 * 512),
     )
-    eng = ShardedSearchEngine(index, cfg, use_pallas=False)
+    eng = ShardedSearchEngine(index, cfg)
     direct, _ = eng.search_works(works)
 
     out = tmp_path / "run_sharded"
@@ -184,7 +173,7 @@ def test_resumable_runner_detects_corpus_change(tmp_path, world):
     """Adding works shifts unit membership: stale units must recompute,
     never silently skip the new works (round-2 review finding)."""
     index, works, planted = world
-    eng = SearchEngine(index, CFG, use_pallas=False)
+    eng = SearchEngine(index, CFG)
     out = tmp_path / "run_grow"
     some = dict(list(sorted(works.items()))[:6])
     ResumableRunner(eng, out, unit_size=3).run(some)
@@ -203,7 +192,7 @@ def test_resumable_runner_detects_corpus_change(tmp_path, world):
 def test_retry_after_http_date():
     import time as _time
 
-    from fandom_search_tpu.scrape.ao3 import _parse_retry_after
+    from fandom_search.scrape.ao3 import _parse_retry_after
 
     assert _parse_retry_after("120") == 120.0
     assert _parse_retry_after("0") == 0.0
@@ -241,7 +230,7 @@ def test_cli_index_then_search(tmp_path):
     noise = " ".join(vocab[i] for i in rng.integers(0, len(vocab), 80))
     (fan_dir / "w1.txt").write_text(f"{noise} {quote} {noise}", encoding="utf-8")
 
-    cmd = [sys.executable, "-m", "fandom_search_tpu"]
+    cmd = [sys.executable, "-m", "fandom_search"]
     r = subprocess.run(
         cmd + ["index", str(script_path), "-o", str(tmp_path / "idx"), "--cpu"],
         capture_output=True, text=True, cwd="/root/repo",
@@ -251,7 +240,7 @@ def test_cli_index_then_search(tmp_path):
     r = subprocess.run(
         cmd + [
             "search", str(fan_dir), "--index", str(tmp_path / "idx"),
-            "-o", str(tmp_path / "m.csv"), "--cpu", "--no-pallas",
+            "-o", str(tmp_path / "m.csv"), "--cpu",
             "--resume-dir", str(tmp_path / "units"),
         ],
         capture_output=True, text=True, cwd="/root/repo",
@@ -265,11 +254,11 @@ def test_cli_index_then_search(tmp_path):
 def test_save_load_bucketed_roundtrip(tmp_path, world):
     """Persisted bucketed tables load bit-identical and attach on a
     loaded engine with identical rows."""
-    from fandom_search_tpu.config import BucketedConfig
-    from fandom_search_tpu.ops.bucketed import (
+    from fandom_search.config import BucketedConfig
+    from fandom_search.ops.bucketed import (
         BucketedIndex, attach_bucketed_prefilter,
     )
-    from fandom_search_tpu.search.persist import load_bucketed, save_bucketed
+    from fandom_search.search.persist import load_bucketed, save_bucketed
 
     index, works, _ = world
     bcfg = BucketedConfig()
@@ -295,9 +284,9 @@ def test_save_load_bucketed_roundtrip(tmp_path, world):
     ) is None
 
     index2, cfg2 = load_index(tmp_path / "idx")
-    e_fresh = SearchEngine(index, CFG, use_pallas=True, interpret=True)
+    e_fresh = SearchEngine(index, CFG, interpret=True)
     attach_bucketed_prefilter(e_fresh, bcfg)
-    e_loaded = SearchEngine(index2, cfg2, use_pallas=True, interpret=True)
+    e_loaded = SearchEngine(index2, cfg2, interpret=True)
     attach_bucketed_prefilter(e_loaded, bcfg, bidx=loaded)
     r1, _ = e_fresh.search_works(works)
     r2, _ = e_loaded.search_works(works)
@@ -311,9 +300,9 @@ def test_nondefault_bucketed_config_survives_index_roundtrip(tmp_path, world):
     (round-2 advisor medium: persist.py bucketed identity)."""
     import dataclasses as dc
 
-    from fandom_search_tpu.config import BucketedConfig
-    from fandom_search_tpu.ops.bucketed import BucketedIndex
-    from fandom_search_tpu.search.persist import load_bucketed, save_bucketed
+    from fandom_search.config import BucketedConfig
+    from fandom_search.ops.bucketed import BucketedIndex
+    from fandom_search.search.persist import load_bucketed, save_bucketed
 
     index, _, _ = world
     bcfg = BucketedConfig(pairs="all", cap=16)
@@ -349,7 +338,7 @@ def test_cli_multiscript_index_then_search_and_matrix(tmp_path):
     (fan_dir / "w1.txt").write_text(f"{noise} {q1} {noise}", encoding="utf-8")
     (fan_dir / "w2.txt").write_text(f"{noise} {q2} {noise}", encoding="utf-8")
 
-    cmd = [sys.executable, "-m", "fandom_search_tpu"]
+    cmd = [sys.executable, "-m", "fandom_search"]
     r = subprocess.run(
         cmd + ["index"] + paths + ["-o", str(tmp_path / "idx"), "--cpu"],
         capture_output=True, text=True, cwd="/root/repo",
@@ -357,7 +346,7 @@ def test_cli_multiscript_index_then_search_and_matrix(tmp_path):
     assert r.returncode == 0, r.stderr
     r = subprocess.run(
         cmd + ["search", str(fan_dir), "--index", str(tmp_path / "idx"),
-               "-o", str(tmp_path / "m.csv"), "--cpu", "--no-pallas"],
+               "-o", str(tmp_path / "m.csv"), "--cpu"],
         capture_output=True, text=True, cwd="/root/repo",
     )
     assert r.returncode == 0, r.stderr

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.reference_pipeline import ReferenceSearch
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.reference_pipeline import ReferenceSearch
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,

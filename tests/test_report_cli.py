@@ -6,14 +6,14 @@ from pathlib import Path
 
 import numpy as np
 
-from fandom_search_tpu.search.report import (
+from fandom_search.search.report import (
     aggregate_matrix,
     read_matches_csv,
     write_matches_csv,
     write_matrix_csv,
 )
-from fandom_search_tpu.search.types import MatchRow
-from fandom_search_tpu.utils.synthetic import make_script, make_vocab
+from fandom_search.search.types import MatchRow
+from fandom_search.utils.synthetic import make_script, make_vocab
 
 
 def _row(wid, line, start=0):
@@ -69,7 +69,7 @@ def test_cli_end_to_end(tmp_path):
     (fan_dir / "w1.txt").write_text(f"{noise} {quote} {noise}", encoding="utf-8")
     (fan_dir / "w2.txt").write_text(noise, encoding="utf-8")
 
-    env_cmd = [sys.executable, "-m", "fandom_search_tpu"]
+    env_cmd = [sys.executable, "-m", "fandom_search"]
 
     out_fmt = tmp_path / "script.csv"
     r = subprocess.run(
@@ -83,7 +83,7 @@ def test_cli_end_to_end(tmp_path):
     r = subprocess.run(
         env_cmd + [
             "search", str(fan_dir), str(script_path),
-            "-o", str(out_csv), "--cpu", "--no-pallas",
+            "-o", str(out_csv), "--cpu",
         ],
         capture_output=True, text=True, cwd="/root/repo",
     )
@@ -119,7 +119,7 @@ def test_cli_end_to_end(tmp_path):
 
 
 def test_engagement_html_rendering():
-    from fandom_search_tpu.search.heatmap import render_engagement_html
+    from fandom_search.search.heatmap import render_engagement_html
 
     recs = [
         {"line_no": 0, "matches": 4, "distinct_works": 2,
@@ -161,7 +161,7 @@ def test_cli_clean_and_getmeta(tmp_path):
     (raw / "333.html").write_text("<html><body>error page</body></html>",
                                   encoding="utf-8")
 
-    env_cmd = [sys.executable, "-m", "fandom_search_tpu"]
+    env_cmd = [sys.executable, "-m", "fandom_search"]
     corpus = tmp_path / "corpus"
     r = subprocess.run(
         env_cmd + ["clean", str(raw), "-o", str(corpus)],
@@ -189,7 +189,7 @@ def test_cli_clean_and_getmeta(tmp_path):
 def test_parquet_round_trip(tmp_path):
     import pandas as pd
 
-    from fandom_search_tpu.search.report import write_matches_parquet
+    from fandom_search.search.report import write_matches_parquet
 
     rows = [_row("w1", 0), _row("w2", 1, start=10)]
     p = tmp_path / "m.parquet"

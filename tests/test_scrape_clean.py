@@ -1,12 +1,12 @@
 
-from fandom_search_tpu.scrape.ao3 import (
+from fandom_search.scrape.ao3 import (
     ScrapeConfig,
     parse_work_ids,
     scrape_tag,
     tag_search_url,
     work_url,
 )
-from fandom_search_tpu.scrape.clean import (
+from fandom_search.scrape.clean import (
     clean_corpus,
     extract_meta,
     extract_text,

@@ -1,4 +1,4 @@
-from fandom_search_tpu.data.script_parser import parse_script
+from fandom_search.data.script_parser import parse_script
 
 
 def test_tagged_format():

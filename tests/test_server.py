@@ -13,12 +13,12 @@ import urllib.request
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.search.server import SearchService, make_server
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.search.server import SearchService, make_server
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -37,7 +37,7 @@ def served():
         rng, [ln.text for ln in lines], num_works=6, words_per_work=300,
         quotes_per_work=2, num_edits=0, vocab=vocab,
     )
-    engine = SearchEngine(index, cfg, use_pallas=False)
+    engine = SearchEngine(index, cfg)
     service = SearchService(engine, index, cfg)
     service.warm()
     srv = make_server(service, "127.0.0.1", 0)  # ephemeral port

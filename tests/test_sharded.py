@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import MeshConfig, PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.ops.distance_topk import topk_dot_jnp
-from fandom_search_tpu.parallel.mesh import make_mesh
-from fandom_search_tpu.parallel.sharded import ShardedSearchEngine, sharded_topk
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.config import MeshConfig, PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.ops.distance_topk import topk_dot_jnp
+from fandom_search.parallel.mesh import make_mesh
+from fandom_search.parallel.sharded import ShardedSearchEngine, sharded_topk
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -40,9 +40,9 @@ def test_sharded_topk_exact(rng, works, script):
 
     vals, idx = sharded_topk(
         mesh, jnp.asarray(q), jnp.asarray(s), jnp.asarray(ns_valid),
-        K, DIM, use_pallas=False,
+        K, DIM, kernels=False,
     )
-    want_vals, _ = topk_dot_jnp(q, s[:ns_true], K, DIM)
+    want_vals, _ = topk_dot_jnp(q, s[:ns_true], k=K, dim=DIM)
     np.testing.assert_allclose(np.asarray(vals), np.asarray(want_vals), atol=1e-6)
     # picked indices must be score-consistent and within the true range
     full = q.astype(np.int32) @ s[:ns_true].astype(np.int32).T / DIM
@@ -74,10 +74,10 @@ def test_sharded_engine_matches_single(world, works_ax, script_ax):
     )
     index = build_script_index(lines, cfg.shingle, cfg.search)
 
-    single = SearchEngine(index, cfg, use_pallas=False)
+    single = SearchEngine(index, cfg)
     rows1, _ = single.search_works(works)
 
-    sharded = ShardedSearchEngine(index, cfg, use_pallas=False)
+    sharded = ShardedSearchEngine(index, cfg)
     rows2, stats = sharded.search_works(works)
 
     key = lambda r: (r.work_id, r.fan_token_start, r.fan_token_end, r.line_no)
@@ -96,7 +96,7 @@ def test_sharded_batch_granule_alignment(world):
         cfg, search=dataclasses.replace(cfg.search, batch_queries=1 << 18)
     )
     index = build_script_index(lines, cfg.shingle, cfg.search)
-    eng = ShardedSearchEngine(index, cfg, use_pallas=False)
+    eng = ShardedSearchEngine(index, cfg)
     assert eng._batch_granule % (4 * 256) == 0
     # every bucket rung (granule * pow2, capped) stays aligned too
     g = eng._batch_granule
@@ -116,43 +116,19 @@ def test_sharded_engine_pallas_interpret(world):
     index = build_script_index(lines, cfg.shingle, cfg.search)
     mesh = _mesh(2, 2)
 
-    single = SearchEngine(index, cfg, use_pallas=False)
+    single = SearchEngine(index, cfg)
     rows1, _ = single.search_works(works)
     sharded = ShardedSearchEngine(
-        index, cfg, mesh=mesh, use_pallas=True, interpret=True
+        index, cfg, mesh=mesh, interpret=True
     )
     rows2, _ = sharded.search_works(works)
     key = lambda r: (r.work_id, r.fan_token_start, r.fan_token_end, r.line_no)
     assert {key(r) for r in rows1} == {key(r) for r in rows2}
 
 
-def test_sharded_engine_with_lsh_prefilter(world):
-    # the LSH prefilter swaps the candidate stage on ANY engine,
-    # including the sharded one (which then uses the two-stage flow)
-    import dataclasses as dc
-
-    from fandom_search_tpu.ops.lsh import attach_lsh_prefilter
-    from fandom_search_tpu.search.index import build_script_index
-
-    lines, works, planted = world
-    cfg = PipelineConfig()
-    cfg = dc.replace(cfg, search=dc.replace(cfg.search, batch_queries=2048))
-    index = build_script_index(lines, cfg.shingle, cfg.search)
-    mesh = _mesh(2, 1)
-    base = ShardedSearchEngine(index, cfg, mesh=mesh, use_pallas=False)
-    want, _ = base.search_works(works)
-
-    eng = ShardedSearchEngine(index, cfg, mesh=mesh, use_pallas=False)
-    attach_lsh_prefilter(eng, cfg.lsh)
-    got, stats = eng.search_works(works)
-    key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
-    assert {key(r) for r in got} == {key(r) for r in want}
-    assert stats.num_verified > 0
-
-
 def test_mesh_shape_for_device_count_math():
     """Multi-host mesh factorization logic (no real hosts needed)."""
-    from fandom_search_tpu.parallel.mesh import mesh_shape_for
+    from fandom_search.parallel.mesh import mesh_shape_for
 
     assert mesh_shape_for(1) == (1, 1)
     assert mesh_shape_for(8) == (8, 1)
@@ -168,7 +144,7 @@ def test_mesh_shape_for_device_count_math():
 
 
 def test_make_mesh_device_count_validation():
-    from fandom_search_tpu.parallel.mesh import AXIS_SCRIPT, AXIS_WORKS
+    from fandom_search.parallel.mesh import AXIS_SCRIPT, AXIS_WORKS
 
     n = len(jax.devices())
     if n >= 8:
@@ -181,8 +157,8 @@ def test_make_mesh_device_count_validation():
 def test_multihost_cli_flag_wiring():
     """--multihost exists and routes to initialize_multihost (mocked —
     there is no second host here)."""
-    from fandom_search_tpu import cli
-    from fandom_search_tpu.parallel import mesh as mesh_mod
+    from fandom_search import cli
+    from fandom_search.parallel import mesh as mesh_mod
 
     p = cli.build_parser()
     args = p.parse_args([
@@ -211,19 +187,19 @@ def test_sharded_engine_with_bucketed_prefilter(world):
     flow, replicated rerank) and reproduces its rows."""
     import dataclasses as dc
 
-    from fandom_search_tpu.config import BucketedConfig
-    from fandom_search_tpu.ops.bucketed import attach_bucketed_prefilter
-    from fandom_search_tpu.search.index import build_script_index
+    from fandom_search.config import BucketedConfig
+    from fandom_search.ops.bucketed import attach_bucketed_prefilter
+    from fandom_search.search.index import build_script_index
 
     lines, works, planted = world
     cfg = PipelineConfig()
     cfg = dc.replace(cfg, search=dc.replace(cfg.search, batch_queries=2048))
     index = build_script_index(lines, cfg.shingle, cfg.search)
     mesh = _mesh(2, 1)
-    base = ShardedSearchEngine(index, cfg, mesh=mesh, use_pallas=False)
+    base = ShardedSearchEngine(index, cfg, mesh=mesh)
     want, _ = base.search_works(works)
 
-    eng = ShardedSearchEngine(index, cfg, mesh=mesh, use_pallas=False)
+    eng = ShardedSearchEngine(index, cfg, mesh=mesh)
     attach_bucketed_prefilter(eng, BucketedConfig())
     got, stats = eng.search_works(works)
     key = lambda r: (r.work_id, r.fan_token_start, r.line_no)  # noqa: E731
@@ -245,7 +221,7 @@ def test_sharded_engine_with_stream_compression(world):
                 cfg.search, batch_queries=4 * 512, stream_compress=compress
             )
         )
-        eng = ShardedSearchEngine(index, c, use_pallas=False)
+        eng = ShardedSearchEngine(index, c)
         rows, stats = eng.search_works(works)
         return rows, stats, eng
 
@@ -258,27 +234,49 @@ def test_sharded_engine_with_stream_compression(world):
     assert sorted(map(key, rows_on)) == sorted(map(key, rows_off))
 
 
-def test_sharded_engine_coerces_slide_variant(world):
-    """sw_variant="slide" cannot compile on the sharded path's AOT
-    compiler (dynamic sublane load); the sharded engine must coerce it
-    to its bit-identical rolling-state twin ("wide") and produce the
-    same rows as the single engine (ops/smith_waterman.py round-5
-    verdict)."""
+@pytest.mark.parametrize("works_ax,script_ax", [(4, 1), (1, 4)])
+def test_sharded_engine_kernel_meshes(world, works_ax, script_ax):
+    """The kernels (interpret mode) inside shard_map on an all-works and
+    an all-script mesh give the single-device rows."""
     lines, works, planted = world
-    cfg = PipelineConfig(mesh=MeshConfig(works=2, script=2))
+    cfg = PipelineConfig(mesh=MeshConfig(works=works_ax, script=script_ax))
     cfg = dataclasses.replace(
         cfg, search=dataclasses.replace(
-            cfg.search, batch_queries=2 * 512, sw_variant="slide"
+            cfg.search, batch_queries=works_ax * 512
         )
     )
     index = build_script_index(lines, cfg.shingle, cfg.search)
-    mesh = _mesh(2, 2)
-
-    single = SearchEngine(index, cfg, use_pallas=False)
+    single = SearchEngine(index, cfg)
     rows1, _ = single.search_works(works)
     sharded = ShardedSearchEngine(
-        index, cfg, mesh=mesh, use_pallas=True, interpret=True
+        index, cfg, mesh=_mesh(works_ax, script_ax), interpret=True
     )
     rows2, _ = sharded.search_works(works)
     key = lambda r: (r.work_id, r.fan_token_start, r.fan_token_end, r.line_no)
     assert {key(r) for r in rows1} == {key(r) for r in rows2}
+
+
+@pytest.mark.parametrize("works_ax,script_ax", [(2, 2), (1, 4)])
+def test_sharded_topk_kernel_exact_indices(rng, works_ax, script_ax):
+    """The cross-shard merge keeps the lowest global index on ties: a
+    script row duplicated into every shard resolves to its first copy,
+    exactly as the single-device plain path does."""
+    mesh = _mesh(works_ax, script_ax)
+    per = 128
+    ns_true = per * script_ax - 37
+    q = rng.integers(-6, 7, size=(64 * works_ax, DIM)).astype(np.int8)
+    s = np.zeros((per * script_ax, DIM), dtype=np.int8)
+    s[:ns_true] = rng.integers(-6, 7, size=(ns_true, DIM)).astype(np.int8)
+    for sh in range(script_ax):
+        s[sh * per + 5] = q[0]
+    ns_valid = np.clip(
+        ns_true - np.arange(script_ax) * per, 0, per
+    ).astype(np.int32)
+    vals, idx = sharded_topk(
+        mesh, jnp.asarray(q), jnp.asarray(s), jnp.asarray(ns_valid),
+        K, DIM, kernels=True, interpret=True,
+    )
+    want_v, want_i = topk_dot_jnp(q, s[:ns_true], k=K, dim=DIM)
+    np.testing.assert_array_equal(np.asarray(vals), np.asarray(want_v))
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(want_i))
+    assert int(np.asarray(idx)[0, 0]) == 5

@@ -8,16 +8,16 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import BucketedConfig, MeshConfig, PipelineConfig
-from fandom_search_tpu.data.script_parser import parse_script
-from fandom_search_tpu.parallel.mesh import make_mesh
-from fandom_search_tpu.parallel.sharded import ShardedSearchEngine
-from fandom_search_tpu.parallel.sharded_bucketed import (
+from fandom_search.config import BucketedConfig, MeshConfig, PipelineConfig
+from fandom_search.data.script_parser import parse_script
+from fandom_search.parallel.mesh import make_mesh
+from fandom_search.parallel.sharded import ShardedSearchEngine
+from fandom_search.parallel.sharded_bucketed import (
     attach_bucketed_prefilter_sharded,
 )
-from fandom_search_tpu.search.engine import SearchEngine
-from fandom_search_tpu.search.index import build_script_index
-from fandom_search_tpu.utils.synthetic import (
+from fandom_search.search.engine import SearchEngine
+from fandom_search.search.index import build_script_index
+from fandom_search.utils.synthetic import (
     make_corpus_with_quotes,
     make_script,
     make_vocab,
@@ -67,12 +67,12 @@ def test_sharded_bucketed_pure_matches_exact(
     cfg = _cfg(works_ax, script_ax)
     index = build_script_index(lines, cfg.shingle, cfg.search)
 
-    exact = SearchEngine(index, cfg, use_pallas=False)
+    exact = SearchEngine(index, cfg)
     want, _ = exact.search_works(works)
     assert want
 
     eng = ShardedSearchEngine(
-        index, cfg, mesh=make_mesh(cfg.mesh), use_pallas=False
+        index, cfg, mesh=make_mesh(cfg.mesh)
     )
     attach_bucketed_prefilter_sharded(eng, BCFG)
     assert eng.bucketed.overflow_frac == 0.0
@@ -91,12 +91,12 @@ def test_sharded_bucketed_hybrid_rescues_skew(rng):
     _, index, works = _skewed_world(rng)
     cfg = _cfg(4, 2)
     # rebuild the index under the mesh cfg (identical shingle params)
-    exact = SearchEngine(index, cfg, use_pallas=False)
+    exact = SearchEngine(index, cfg)
     want, wstats = exact.search_works(works)
     assert wstats.num_verified > 0
 
     eng = ShardedSearchEngine(
-        index, cfg, mesh=make_mesh(cfg.mesh), use_pallas=False
+        index, cfg, mesh=make_mesh(cfg.mesh)
     )
     attach_bucketed_prefilter_sharded(eng, BCFG)
     assert eng.bucketed.overflow_frac > 0.05
@@ -112,11 +112,11 @@ def test_sharded_bucketed_interpret_pallas(uniform_world):
     lines, works, _ = uniform_world
     cfg = _cfg(2, 4)
     index = build_script_index(lines, cfg.shingle, cfg.search)
-    exact = SearchEngine(index, cfg, use_pallas=False)
+    exact = SearchEngine(index, cfg)
     want, _ = exact.search_works(works)
 
     eng = ShardedSearchEngine(
-        index, cfg, mesh=make_mesh(cfg.mesh), use_pallas=True,
+        index, cfg, mesh=make_mesh(cfg.mesh),
         interpret=True,
     )
     attach_bucketed_prefilter_sharded(eng, BCFG)

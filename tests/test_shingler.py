@@ -1,8 +1,8 @@
 import numpy as np
 
-from fandom_search_tpu.config import ShingleConfig
-from fandom_search_tpu.data.hashing import hash_words
-from fandom_search_tpu.data.shingler import (
+from fandom_search.config import ShingleConfig
+from fandom_search.data.hashing import hash_words
+from fandom_search.data.shingler import (
     embed_shingles,
     embed_shingles_np,
     shingle_hashes,

@@ -1,12 +1,13 @@
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import SearchConfig
-from fandom_search_tpu.ops.smith_waterman import (
+from fandom_search.config import SearchConfig
+from fandom_search.ops.smith_waterman import (
+    sw_normalized,
     sw_normalized_jnp,
-    sw_normalized_pallas,
+    sw_normalized_triton,
 )
-from fandom_search_tpu.search.verify_np import sw_normalized_np
+from fandom_search.search.verify_np import sw_normalized_np
 
 CFG = SearchConfig()
 LA, LB = 32, 24
@@ -45,7 +46,7 @@ def test_jnp_matches_numpy(rng):
 def test_pallas_matches_numpy(rng):
     a, b, len_a, len_b = _make_batch(rng, 64)
     got = np.asarray(
-        sw_normalized_pallas(a, b, len_a, len_b, CFG, tile_b=32, interpret=True)
+        sw_normalized_triton(a, b, len_a, len_b, CFG, tile_b=32, interpret=True)
     )
     want = _np_scores(a, b, len_a, len_b)
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -59,7 +60,7 @@ def test_exact_containment_scores_one(rng):
     for i in range(8):
         b[i, :10] = a[i, 5:15]
     got = np.asarray(
-        sw_normalized_pallas(a, b, len_a, len_b, CFG, tile_b=8, interpret=True)
+        sw_normalized_triton(a, b, len_a, len_b, CFG, tile_b=8, interpret=True)
     )
     np.testing.assert_allclose(got, np.ones(8), atol=1e-6)
 
@@ -70,7 +71,7 @@ def test_disjoint_scores_zero(rng):
     len_a = np.full(8, LA, dtype=np.int32)
     len_b = np.full(8, LB, dtype=np.int32)
     got = np.asarray(
-        sw_normalized_pallas(a, b, len_a, len_b, CFG, tile_b=8, interpret=True)
+        sw_normalized_triton(a, b, len_a, len_b, CFG, tile_b=8, interpret=True)
     )
     np.testing.assert_allclose(got, np.zeros(8), atol=1e-6)
 
@@ -79,7 +80,7 @@ def test_ragged_batch_padding(rng):
     # batch size not a multiple of tile_b
     a, b, len_a, len_b = _make_batch(rng, 37)
     got = np.asarray(
-        sw_normalized_pallas(a, b, len_a, len_b, CFG, tile_b=16, interpret=True)
+        sw_normalized_triton(a, b, len_a, len_b, CFG, tile_b=16, interpret=True)
     )
     assert got.shape == (37,)
     want = _np_scores(a, b, len_a, len_b)
@@ -87,7 +88,7 @@ def test_ragged_batch_padding(rng):
 
 
 def test_empty_batch():
-    out = sw_normalized_pallas(
+    out = sw_normalized_triton(
         np.zeros((0, LA), np.uint32),
         np.zeros((0, LB), np.uint32),
         np.zeros((0,), np.int32),
@@ -98,197 +99,76 @@ def test_empty_batch():
     assert out.shape == (0,)
 
 
-def test_i16_state_matches_f32(rng):
-    """The int16-state kernel (concat-shift; 2 values per VPU lane)
-    must reproduce the f32 wavefront exactly for integral scoring."""
-    from fandom_search_tpu.config import SearchConfig
-    from fandom_search_tpu.ops.smith_waterman import sw_normalized_pallas
+# ---- kernel vs the plain path, exact ----------------------------------------
 
-    cfg = SearchConfig()
-    B, w, mlt = 256, 64, 64
-    a = rng.integers(1, 40, size=(B, w)).astype(np.uint32)
-    b = rng.integers(1, 40, size=(B, mlt)).astype(np.uint32)
-    la = rng.integers(0, w + 1, size=B).astype(np.int32)
-    lb = rng.integers(1, mlt + 1, size=B).astype(np.int32)
-    # i16 is a lane-major-kernel path; variant="wide" rejects it
-    f = np.asarray(
-        sw_normalized_pallas(a, b, la, lb, cfg, interpret=True,
-                             state="f32", variant="fast")
+W = 64  # the engine's window and line-segment width
+
+
+def _assert_kernel_equals_plain(a, b, len_a, len_b, cfg=CFG, tile_b=16):
+    got = np.asarray(sw_normalized_triton(
+        a, b, len_a, len_b, cfg, tile_b=tile_b, interpret=True,
+    ))
+    want = np.asarray(sw_normalized_jnp(a, b, len_a, len_b, cfg))
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize(
+    "la,lb", [(0, 0), (0, 5), (5, 0), (1, 1), (1, 64), (64, 1), (64, 64),
+              (17, 33)]
+)
+def test_kernel_edge_lengths(rng, la, lb):
+    """Lengths 0, 1 and 64 on either side, exact against the plain
+    path (a zero length scores 0; the denominator floors at 1)."""
+    a = rng.integers(1, 4, size=(16, W)).astype(np.uint32)
+    b = rng.integers(1, 4, size=(16, W)).astype(np.uint32)
+    got = _assert_kernel_equals_plain(
+        a, b, np.full(16, la, np.int32), np.full(16, lb, np.int32)
     )
-    i = np.asarray(
-        sw_normalized_pallas(a, b, la, lb, cfg, interpret=True,
-                             state="i16", variant="fast")
-    )
-    np.testing.assert_array_equal(f, i)
+    if la == 0 or lb == 0:
+        assert (got == 0).all()
 
 
-def test_fast_variant_matches_r2_and_numpy(rng):
-    """Round-3 kernel (double-buffered DP state + dynamic trip count)
-    must be bit-equal to the round-2 control variant and the NumPy
-    oracle on ragged batches — including tiles whose max length is far
-    below the static bound (the dynamic-trips win case) and tiles with
-    one long pair (the dynamic-trips worst case)."""
-    a, b, len_a, len_b = _make_batch(rng, 64)
-    # one tile of short pairs, one tile with a single long pair
-    len_b[:32] = rng.integers(3, 9, size=32)
-    len_a[:32] = rng.integers(5, 15, size=32)
-    len_b[32:] = rng.integers(3, 9, size=32)
-    len_a[32:] = rng.integers(5, 15, size=32)
-    len_a[40], len_b[40] = a.shape[1], b.shape[1]
-    want = _np_scores(a, b, len_a, len_b)
-    for variant in ("fast", "r2", "dyn"):
-        got = np.asarray(
-            sw_normalized_pallas(
-                a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-                variant=variant,
-            )
-        )
-        np.testing.assert_allclose(got, want, atol=1e-5)
-    # odd unroll is incompatible with the fast variant's role-swapped
-    # buffers (the r2 default has no such constraint)
-    with pytest.raises(ValueError, match="unroll"):
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True, unroll=3,
-            variant="fast",
-        )
+def test_kernel_all_padding_blocks(rng):
+    """An engine-like length-sorted batch whose trailing blocks hold only
+    padding pairs (zero lengths): those score exactly 0."""
+    n = 80
+    a = rng.integers(1, 6, size=(n, W)).astype(np.uint32)
+    b = rng.integers(1, 6, size=(n, W)).astype(np.uint32)
+    len_a = np.zeros(n, np.int32)
+    len_b = np.zeros(n, np.int32)
+    len_a[:20] = W
+    len_b[:20] = np.sort(rng.integers(1, 30, size=20))[::-1]
+    got = _assert_kernel_equals_plain(a, b, len_a, len_b)
+    assert (got[20:] == 0).all() and got[:20].max() > 0
 
 
-def test_wide_variant_matches_fast_and_numpy(rng):
-    """Round-5 kernel (variant="wide": batch along lanes, j along
-    sublanes — full vreg utilization at the engine's lb=64) must be
-    bit-equal to variant="fast" and the NumPy oracle on the same
-    ragged batches, including all-padding tiles (the pl.when skip)."""
-    a, b, len_a, len_b = _make_batch(rng, 96)
-    len_b[:32] = rng.integers(3, 9, size=32)
-    len_a[:32] = rng.integers(5, 15, size=32)
-    len_a[40], len_b[40] = a.shape[1], b.shape[1]
-    len_a[64:] = 0  # an all-padding tile at tile_b=32
-    len_b[64:] = 0
-    want = _np_scores(a, b, len_a, len_b)
-    got_fast = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="fast",
-        )
-    )
-    got_wide = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="wide",
-        )
-    )
-    np.testing.assert_allclose(got_wide, want, atol=1e-5)
-    np.testing.assert_array_equal(got_wide, got_fast)
-    with pytest.raises(ValueError, match="state"):
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="wide", state="i16",
-        )
+@pytest.mark.parametrize("vocab", [2, 5, 1000])
+def test_kernel_random_exact(rng, vocab):
+    """Random pairs at every density of matches, exact."""
+    n = 40
+    a = rng.integers(0, vocab, size=(n, W)).astype(np.uint32)
+    b = rng.integers(0, vocab, size=(n, W)).astype(np.uint32)
+    len_a = rng.integers(0, W + 1, size=n).astype(np.int32)
+    len_b = rng.integers(0, W + 1, size=n).astype(np.int32)
+    _assert_kernel_equals_plain(a, b, len_a, len_b)
 
 
-def test_exitw_thresholded_semantics(rng):
-    """variant="exitw" (round-5 measured companion to the analytical
-    negative (g)): the early exit may only discard sub-threshold
-    residue.  Contract: the kept SET (score >= verify_threshold) and
-    the kept rows' SCORES are bit-equal to the exact wide kernel;
-    dropped rows must still report scores strictly below threshold."""
-    a, b, len_a, len_b = _make_batch(rng, 96)
-    len_b[:32] = rng.integers(3, 9, size=32)
-    len_a[:32] = rng.integers(5, 15, size=32)
-    len_a[64:] = 0
-    len_b[64:] = 0
-    exact = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="wide",
-        )
-    )
-    got = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="exitw",
-        )
-    )
-    thr = CFG.verify_threshold
-    keep_exact = exact >= thr
-    keep_got = got >= thr
-    np.testing.assert_array_equal(keep_got, keep_exact)
-    np.testing.assert_array_equal(got[keep_got], exact[keep_exact])
-    assert np.all(got[~keep_got] < thr)
+@pytest.mark.parametrize(
+    "match,mismatch,gap", [(2.0, -1.0, -1.0), (1.0, -1.0, -2.0),
+                           (3.0, -2.0, -1.0)]
+)
+def test_kernel_scoring_params(rng, match, mismatch, gap):
+    cfg = SearchConfig(sw_match=match, sw_mismatch=mismatch, sw_gap=gap)
+    a, b, len_a, len_b = _make_batch(rng, 24, vocab=4)
+    _assert_kernel_equals_plain(a, b, len_a, len_b, cfg=cfg, tile_b=8)
 
 
-def test_exitw_zero_signal_exits_exact(rng):
-    """A zero-signal batch (disjoint vocabularies, full windows) is the
-    regime where the exit actually fires — every row's future bound
-    falls below thr*denom in the tail.  All scores must stay below
-    threshold and the kept set must stay empty."""
-    bsz = 32
-    a = rng.integers(1, 500, size=(bsz, LA)).astype(np.uint32)
-    b = rng.integers(1000, 2000, size=(bsz, LB)).astype(np.uint32)
-    len_a = np.full(bsz, LA, np.int32)
-    len_b = np.full(bsz, LB, np.int32)
-    got = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="exitw",
-        )
-    )
-    assert got.shape == (bsz,)
-    assert np.all(got < CFG.verify_threshold)
-
-
-def test_slide_variant_matches_wide(rng):
-    """variant="slide" (round-5: dynamic sublane-offset a-diagonal read
-    instead of the rolling state buffer) must be bit-equal to "wide"
-    on ragged batches including all-padding tiles."""
-    a, b, len_a, len_b = _make_batch(rng, 96)
-    len_b[:32] = rng.integers(3, 9, size=32)
-    len_a[:32] = rng.integers(5, 15, size=32)
-    len_a[40], len_b[40] = a.shape[1], b.shape[1]
-    len_a[64:] = 0
-    len_b[64:] = 0
-    want = _np_scores(a, b, len_a, len_b)
-    got_wide = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="wide",
-        )
-    )
-    got_slide = np.asarray(
-        sw_normalized_pallas(
-            a, b, len_a, len_b, CFG, tile_b=32, interpret=True,
-            variant="slide",
-        )
-    )
-    np.testing.assert_allclose(got_slide, want, atol=1e-5)
-    np.testing.assert_array_equal(got_slide, got_wide)
-
-
-def test_exitw_contract_fuzz_across_thresholds(rng):
-    """The exitw thresholded-semantics contract must hold for ANY
-    threshold (the bar sharpens or loosens the exit window): fuzz
-    verify_threshold and batch content; kept set + kept scores always
-    bit-equal to the exact wide kernel."""
-    import dataclasses
-
-    for thr in (0.15, 0.35, 0.6, 0.9):
-        cfg = dataclasses.replace(CFG, verify_threshold=thr)
-        a, b, len_a, len_b = _make_batch(rng, 64)
-        exact = np.asarray(
-            sw_normalized_pallas(
-                a, b, len_a, len_b, cfg, tile_b=32, interpret=True,
-                variant="wide",
-            )
-        )
-        got = np.asarray(
-            sw_normalized_pallas(
-                a, b, len_a, len_b, cfg, tile_b=32, interpret=True,
-                variant="exitw",
-            )
-        )
-        keep_e, keep_g = exact >= thr, got >= thr
-        assert np.array_equal(keep_g, keep_e), f"kept-set @thr={thr}"
-        assert np.array_equal(got[keep_g], exact[keep_e]), (
-            f"kept-score @thr={thr}"
-        )
-        assert np.all(got[~keep_g] < thr), f"residue @thr={thr}"
+def test_dispatch_follows_kernels_flag(rng):
+    a, b, len_a, len_b = _make_batch(rng, 12)
+    plain = np.asarray(sw_normalized(a, b, len_a, len_b, CFG, kernels=False))
+    kern = np.asarray(sw_normalized(
+        a, b, len_a, len_b, CFG, kernels=True, interpret=True,
+    ))
+    np.testing.assert_array_equal(plain, kern)
+    np.testing.assert_allclose(plain, _np_scores(a, b, len_a, len_b), atol=1e-6)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from fandom_search_tpu.data.tokenizer import tokenize
+from fandom_search.data.tokenizer import tokenize
 
 
 def test_basic_tokens():

@@ -11,10 +11,10 @@ the line; negative: pure noise) the two verdicts must agree >= 95%.
 import numpy as np
 import pytest
 
-from fandom_search_tpu.config import PipelineConfig
-from fandom_search_tpu.data.tokenizer import tokenize
-from fandom_search_tpu.search.verify_np import levenshtein_ratio, sw_normalized_np
-from fandom_search_tpu.utils.synthetic import make_vocab
+from fandom_search.config import PipelineConfig
+from fandom_search.data.tokenizer import tokenize
+from fandom_search.search.verify_np import levenshtein_ratio, sw_normalized_np
+from fandom_search.utils.synthetic import make_vocab
 
 CFG = PipelineConfig()
 

@@ -10,7 +10,7 @@ contract).
 import numpy as np
 import pytest
 
-from fandom_search_tpu.search.vocab_stream import CAPACITY, SENTINEL, StreamVocab
+from fandom_search.search.vocab_stream import CAPACITY, SENTINEL, StreamVocab
 
 
 def _roundtrip(vocab, stream):
@@ -108,7 +108,7 @@ def test_native_numpy_encode_parity_and_miss_cap(monkeypatch):
     """fs_encode_stream (C probe table) and the searchsorted fallback
     produce identical encodings, and miss_cap truncates the patch
     arrays while the returned total stays exact on both paths."""
-    from fandom_search_tpu.data import fast_tokenizer
+    from fandom_search.data import fast_tokenizer
 
     if fast_tokenizer.get_lib() is None:
         pytest.skip("native fastingest unavailable")
@@ -145,7 +145,7 @@ def test_device_decode_bit_parity():
     """engine._decode_stream_jit reconstructs the exact u32 stream_ext."""
     import jax.numpy as jnp
 
-    from fandom_search_tpu.search.engine import _decode_stream_jit
+    from fandom_search.search.engine import _decode_stream_jit
 
     rng = np.random.default_rng(4)
     v = StreamVocab()
@@ -190,13 +190,12 @@ def test_engine_rows_identical_with_and_without_compression(world2, compress):
     import dataclasses
 
     works, index, cfg = world2
-    from fandom_search_tpu.search.engine import SearchEngine
+    from fandom_search.search.engine import SearchEngine
 
     scfg = dataclasses.replace(
         cfg.search, stream_compress=compress, batch_queries=512
     )
-    eng = SearchEngine(index, dataclasses.replace(cfg, search=scfg),
-                       use_pallas=False)
+    eng = SearchEngine(index, dataclasses.replace(cfg, search=scfg))
     rows, stats = eng.search_works(works)
     assert stats.num_batches > 1  # encoded path exercised past bootstrap
     keyed = sorted(
@@ -218,10 +217,10 @@ _ROWS: dict = {}
 
 @pytest.fixture(scope="module")
 def world2():
-    from fandom_search_tpu.config import PipelineConfig
-    from fandom_search_tpu.data.script_parser import parse_script
-    from fandom_search_tpu.search.index import build_script_index
-    from fandom_search_tpu.utils.synthetic import (
+    from fandom_search.config import PipelineConfig
+    from fandom_search.data.script_parser import parse_script
+    from fandom_search.search.index import build_script_index
+    from fandom_search.utils.synthetic import (
         make_corpus_with_quotes,
         make_script,
         make_vocab,
